@@ -1,0 +1,264 @@
+"""BIG-C: the predicate-query classification model, for the card.
+
+Port of the JAX package's ``models/big_c.py``, v10 variant (reference
+models/model_0v10.py:239-786, exported as ``BIG_C_vidvrd``), with the
+reference parameter names so a reference ``state_dict`` loads with
+``strict=True``.  One call processes a whole bucket of B videos:
+
+  tracklet geometry+RoI features (B, N, T, .)
+    -> per-frame MLPs -> stride-2 temporal conv -> adaptive-max-pool to
+       ``enco_pool_len`` -> per-tracklet node embedding (B, N, E)
+    -> transformer encoder over the N tracklet tokens (masked)
+    -> role-factored query decoder producing soft adjacency (B, 2, Q, N)
+    -> prediction head (I3D + name-embedding gathers + frequency-bias logits)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.types import TrackletBatch
+from ..ops.segments import (stretch_conv_patches, adaptive_max_pool1d,
+                            stretch_weighted_mean)
+from .layers import MLP, TransformerEncoderLayer, RoleAttnDecoderLayer
+
+
+@dataclasses.dataclass(frozen=True)
+class BigCConfig:
+    num_pred_cats: int
+    num_enti_cats: int
+    dim_feat: int                 # RoI feature dim (2048 vidvrd / 1024 vidor)
+    dim_clsme: int = 300
+    dim_enti: int = 512
+    dim_pred: int = 512
+    dim_att: int = 512
+    dim_ffn: int = 512
+    dim_i3d: Optional[int] = None     # v10: extra I3D channels after dim_feat
+    enco_pool_len: int = 4
+    n_enco_layers: int = 2
+    n_deco_layers: int = 6
+    n_att_head: int = 8
+    num_querys: int = 192
+    dropout: float = 0.1
+    variant: str = "v10"          # only v10 is ported (v7: ROADMAP A7)
+    # dtype of the per-frame encoder matmuls (params stay float32)
+    compute_dtype: str = "float32"
+
+    @classmethod
+    def from_dict(cls, d: dict, variant: str = "v10"):
+        """Build from a reference-style ``model_config`` dict (same keys;
+        the training keys wait for the training slice)."""
+        return cls(
+            num_pred_cats=d["num_pred_cats"],
+            num_enti_cats=d["num_enti_cats"],
+            dim_feat=d["dim_feat"], dim_clsme=d.get("dim_clsme", 300),
+            dim_enti=d["dim_enti"], dim_pred=d["dim_pred"],
+            dim_att=d["dim_att"], dim_ffn=d["dim_ffn"],
+            dim_i3d=d.get("dim_i3d"),
+            enco_pool_len=d["enco_pool_len"],
+            n_enco_layers=d["n_enco_layers"],
+            n_deco_layers=d["n_deco_layers"],
+            n_att_head=d["n_att_head"], num_querys=d["num_querys"],
+            variant=variant,
+            compute_dtype=d.get("compute_dtype", "float32"),
+        )
+
+
+def geometry_features(batch: TrackletBatch):
+    """Per-frame 8-dim box geometry, stretched to the bucket length.
+
+    Matches reference model_0v10.py:391-430: normalized center/size plus
+    *forward* frame differences zero-padded at the trajectory's last frame.
+    """
+    w = batch.video_wh[..., 0][..., None, None]
+    h = batch.video_wh[..., 1][..., None, None]
+    b = batch.boxes                                   # (..., N, T, 4)
+    x1, y1, x2, y2 = b[..., 0] / w, b[..., 1] / h, b[..., 2] / w, b[..., 3] / h
+    vals = torch.stack([(x2 + x1) / 2, (y2 + y1) / 2, x2 - x1, y2 - y1],
+                       dim=-1)                        # (..., N, T, 4)
+    diffs = torch.cat([vals[..., 1:, :] - vals[..., :-1, :],
+                       torch.zeros_like(vals[..., :1, :])], dim=-2)
+    lengths = batch.durations[..., 1] - batch.durations[..., 0] + 1
+    t = b.shape[-2]
+    diff_ok = torch.arange(t, device=b.device) < (lengths[..., None] - 1)
+    diffs = diffs * diff_ok[..., None]
+    return torch.stack(
+        [vals[..., 0], diffs[..., 0], vals[..., 1], diffs[..., 1],
+         vals[..., 2], diffs[..., 2], vals[..., 3], diffs[..., 3]], dim=-1)
+
+
+class TrackletEncoder(nn.Module):
+    """Per-tracklet node embedding (reference model_0v10.py:289-309,
+    446-458): geometry + RoI MLPs -> stride-2 temporal conv -> adaptive max
+    pool -> channel-major flatten -> MLP.
+
+    The reference keeps these layers at the top of the model's state_dict,
+    so the models that use the encoder subclass it.  ``compute_dtype`` runs
+    the per-frame matmuls in bfloat16; the conv output returns to float32.
+    """
+
+    def __init__(self, dim_enti: int, dim_feat: int, enco_pool_len: int,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        e = dim_enti
+        self.dim_feat, self.enco_pool_len = dim_feat, enco_pool_len
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.fc_bbox2enti = MLP(8, (e, e))
+        self.fc_feat2enti = MLP(dim_feat, (e, e))
+        self.conv_feat2enti = nn.Conv1d(2 * e, e, kernel_size=3, stride=2,
+                                        padding=1)
+        self.fc_enti2enco = MLP(e * enco_pool_len, (e, e))
+
+    def encode(self, batch: TrackletBatch):
+        """(B, N, T, D) features -> (B, N, E) float32 node embeddings."""
+        cdt = self.compute_dtype
+        # the stretch gather commutes with the per-frame MLPs (both are
+        # rowwise), so the wide matmuls run on the raw frames
+        geo = geometry_features(batch)                        # (B, N, T, 8)
+        x_geo = self.fc_bbox2enti(geo.to(cdt))
+        x_vis = self.fc_feat2enti(batch.feats[..., :self.dim_feat].to(cdt))
+        x = torch.cat([x_geo, x_vis], dim=-1)                 # (B, N, T, 2E)
+        bsz, n, t, _ = x.shape
+        patches = stretch_conv_patches(x.reshape(bsz * n, t, -1),
+                                       batch.stretch_idx.reshape(bsz * n, t))
+        conv = self.conv_feat2enti                            # (E, 2E, k)
+        w = conv.weight.permute(2, 1, 0).reshape(-1, conv.out_channels)
+        x = patches @ w.to(cdt) + conv.bias.to(cdt)           # (BN, To, E)
+        x = adaptive_max_pool1d(x.float(), self.enco_pool_len, axis=-2)
+        # channel-major flatten, as the reference: (n, E, pool) -> (n, E*pool)
+        x = x.transpose(-1, -2).reshape(bsz, n, -1)
+        return self.fc_enti2enco(x)                           # (B, N, E)
+
+
+class BigC(TrackletEncoder):
+    """Batched BIG-C v10 forward.
+
+    ``enti_name_emb`` fills the frozen ``EntiNameEmb`` buffer
+    (num_enti_cats, dim_clsme); ``generator`` seeds the initial weights.
+    """
+
+    def __init__(self, cfg: BigCConfig, enti_name_emb=None,
+                 generator: Optional[torch.Generator] = None):
+        if cfg.variant != "v10":
+            raise NotImplementedError(
+                f"BigC variant {cfg.variant!r}: only v10 is ported so far "
+                "(v7 is ROADMAP item A7)")
+        super().__init__(cfg.dim_enti, cfg.dim_feat, cfg.enco_pool_len,
+                         cfg.compute_dtype)
+        self.cfg = cfg
+        e, dp = cfg.dim_enti, cfg.dim_pred
+        self.encoder_layers = nn.ModuleList(
+            TransformerEncoderLayer(e, cfg.n_att_head, cfg.dim_ffn,
+                                    cfg.dropout)
+            for _ in range(cfg.n_enco_layers))
+        self.decoder_layers = nn.ModuleList(
+            RoleAttnDecoderLayer(dp, cfg.n_att_head, e, cfg.dim_att,
+                                 cfg.dim_ffn, cfg.dropout)
+            for _ in range(cfg.n_deco_layers))
+        self.pred_query_init = nn.Parameter(torch.empty(cfg.num_querys, dp))
+        self.pos_embedding = nn.Parameter(torch.empty(cfg.num_querys, dp))
+        self.bias_matrix = nn.Parameter(torch.zeros(
+            cfg.num_enti_cats, cfg.num_enti_cats, cfg.num_pred_cats))
+        head_in = dp + 2 * cfg.dim_clsme + 2 * e
+        if cfg.dim_i3d:
+            self.fc_i3d = MLP(cfg.dim_i3d, (e,))
+            head_in += 2 * e
+        self.fc_pred2logits = nn.Linear(head_in, cfg.num_pred_cats)
+        emb = (torch.zeros(cfg.num_enti_cats, cfg.dim_clsme)
+               if enti_name_emb is None else
+               torch.as_tensor(np.asarray(enti_name_emb, np.float32)))
+        self.register_buffer("EntiNameEmb", emb)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        """The JAX package's v10 init: xavier-normal weights (the packed
+        (3D, D) fan for in_proj), zero biases, N(0, 0.1) queries and
+        positional embedding, zero bias_matrix."""
+        for name, p in self.named_parameters():
+            if name in ("pred_query_init", "pos_embedding"):
+                p.normal_(0.0, 0.1, generator=generator)
+            elif name == "bias_matrix" or p.ndim == 1:
+                p.zero_()
+            elif p.ndim >= 2:
+                nn.init.xavier_normal_(p, generator=generator)
+        for mod in self.modules():
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+
+    def forward(self, batch: TrackletBatch):
+        """Returns dict with pred_queries (B,Q,Dp), pred_logits (B,Q,C),
+        att (B,2,Q,N) float32, enti_feat (B,N,E)."""
+        cfg = self.cfg
+        expect = cfg.dim_feat + (cfg.dim_i3d or 0)
+        if batch.feats.shape[-1] != expect:
+            raise ValueError(
+                f"feature dim {batch.feats.shape[-1]} != dim_feat+dim_i3d = "
+                f"{expect}; check dataset fmt vs config")
+        enti2enco = self.encode(batch)
+        mask = batch.traj_mask
+        out = enti2enco
+        for layer in self.encoder_layers:
+            out = layer(out, key_mask=mask)
+        enco_output = out                                     # (B, N, E)
+
+        bsz = enti2enco.shape[0]
+        pred_queries = self.pred_query_init[None].expand(bsz, -1, -1)
+        att = None
+        for layer in self.decoder_layers:
+            pred_queries, att = layer(pred_queries, self.pos_embedding,
+                                      enco_output, mask)
+
+        extra_avg = None
+        if cfg.dim_i3d:
+            # the reference averages over the *stretched* axis
+            # (model_0v10.py:470): a repeat-counts-weighted raw-frame mean
+            lengths = batch.durations[..., 1] - batch.durations[..., 0] + 1
+            extra_avg = stretch_weighted_mean(
+                batch.feats[..., cfg.dim_feat:expect], lengths)
+        pred_logits = self._prediction_head(
+            pred_queries, att, batch.cat_ids, extra_avg, enti2enco)
+        return {"pred_queries": pred_queries, "pred_logits": pred_logits,
+                "att": att, "enti_feat": enti2enco}
+
+    def _prediction_head(self, pred_queries, att, cat_ids, extra_avg,
+                         enti_feat):
+        """Reference model_0v10.py:478-507, batched."""
+        pred_soid = torch.argmax(att, dim=-1)                 # (B, 2, Q)
+        pred_socat = torch.gather(
+            cat_ids[:, None, :].expand(-1, 2, -1), -1, pred_soid).long()
+        pred_bias = self.bias_matrix[pred_socat[:, 0], pred_socat[:, 1]]
+
+        def gather_traj(x, ids):                      # (B, N, D) -> (B, Q, D)
+            return torch.gather(x, 1, ids[..., None].expand(
+                -1, -1, x.shape[-1]))
+
+        sub_feat = gather_traj(enti_feat, pred_soid[:, 0])
+        obj_feat = gather_traj(enti_feat, pred_soid[:, 1])
+        sub_clsme = self.EntiNameEmb[pred_socat[:, 0]]
+        obj_clsme = self.EntiNameEmb[pred_socat[:, 1]]
+        if self.cfg.dim_i3d:  # reference model_0v10.py:495-501
+            # a bf16 i3d mean runs fc_i3d in bf16; the head is float32
+            sub_i3d = self.fc_i3d(gather_traj(extra_avg, pred_soid[:, 0]))
+            obj_i3d = self.fc_i3d(gather_traj(extra_avg, pred_soid[:, 1]))
+            parts = [pred_queries, sub_i3d.float(), obj_i3d.float(),
+                     sub_feat, obj_feat, sub_clsme, obj_clsme]
+        else:
+            parts = [pred_queries, sub_clsme, obj_clsme, sub_feat, obj_feat]
+        logits = self.fc_pred2logits(torch.cat(parts, dim=-1))
+        return logits + pred_bias
+
+
+def load_bias_matrix(model: BigC, bias_matrix) -> BigC:
+    """Overwrite the trainable ``bias_matrix`` with a precomputed prior."""
+    bias = torch.as_tensor(np.asarray(bias_matrix, np.float32))
+    if bias.shape != model.bias_matrix.shape:
+        raise ValueError(f"bias matrix {tuple(bias.shape)} != "
+                         f"{tuple(model.bias_matrix.shape)}")
+    with torch.no_grad():
+        model.bias_matrix.copy_(bias)
+    return model

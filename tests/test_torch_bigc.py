@@ -5,6 +5,7 @@ prior and name-embedding table), carried into the port with
 ``bigc_state_dict_from_jax``, and both models see the same numpy-packed
 records at the demo config's widths (12 tracklets, T <= 64).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -209,7 +210,136 @@ def test_decoder_routes_role_attention(f32_models, monkeypatch, train):
 
 
 def test_v7_is_not_ported_yet():
+    """v7 is ported now (the cases below); what stays out is a variant the
+    JAX package does not have, and v7's config switches keep their JAX
+    meaning."""
     cfg = BigCConfig.from_dict(dict(MODEL_CONFIG, EntiNameEmb_path=None),
                                variant="v7")
-    with pytest.raises(NotImplementedError, match="A7"):
-        BigC(cfg)
+    assert cfg.clsme_in_feats and not cfg.name_emb_in_head
+    assert isinstance(BigC(cfg), BigC)
+    with pytest.raises(ValueError, match="v10 or v7"):
+        BigC(dataclasses.replace(cfg, variant="v8"))
+
+
+# ---- v7 (BIG_C_vidor): frozen pos-table, MLP head, classeme switch --------
+
+V7_CONFIG = parse_config_py(os.path.join(
+    os.path.dirname(__file__), "..", "experiments", "demo",
+    "config_vidor_.py"))["model_config"]
+# (use_clsme, name table?): classeme from the name table, classeme channels
+# in the features (the demo config), no classeme (exp4's head)
+V7_CASES = {"v7_emb": (True, True), "v7_clsme": (True, False),
+            "v7_noclsme": (False, False)}
+
+
+def _v7_models(case, compute_dtype="float32"):
+    use_clsme, name_table = V7_CASES[case]
+    mc = dict(V7_CONFIG, use_clsme=use_clsme, compute_dtype=compute_dtype,
+              EntiNameEmb_path="enti.npy" if name_table else None)
+    jcfg = JaxBigCConfig.from_dict(mc, variant="v7")
+    cfg = BigCConfig.from_dict(mc, variant="v7")
+    rng = np.random.default_rng(7)
+    emb = rng.normal(size=(cfg.num_enti_cats, cfg.dim_clsme)).astype(
+        np.float32)
+    # a trained v7 checkpoint's frozen pos-table is random, not the sine one
+    pos = rng.normal(0, 0.5, (cfg.num_querys, cfg.dim_pred)).astype(
+        np.float32)
+    jmodel = JaxBigC(jcfg, enti_name_emb=emb if name_table else None,
+                     pos_emb_table=pos)
+    jb, _ = _batches(_v7_records([0]))
+    params = jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jax.random.PRNGKey(0), jb))
+    params["params"]["bias_matrix"] = rng.normal(
+        0, 0.5, params["params"]["bias_matrix"].shape).astype(np.float32)
+    tables = {"enti_name_emb": emb, "pos_emb_table": pos}
+    model = BigC(cfg)
+    model.load_state_dict(bigc_state_dict_from_jax(params, cfg, tables),
+                          strict=True)
+    return jmodel, params, model.eval(), tables
+
+
+def _v7_records(seeds):
+    # VidOR features: RoI channels, then 300 classeme channels
+    return _records(seeds, V7_CONFIG["dim_feat"] + V7_CONFIG["dim_clsme"])
+
+
+@pytest.fixture(scope="module", params=list(V7_CASES))
+def v7_models(request):
+    return request.param, _v7_models(request.param)
+
+
+def test_v7_state_dict_round_trip(v7_models):
+    """Exact round trip through bigc_params_from_torch, the frozen tables
+    included; the converted keys are the port model's own (pos_embedding a
+    buffer, EntiNameEmb only where the head reads it)."""
+    case, (_, params, model, tables) = v7_models
+    cfg = model.cfg
+    sd = bigc_state_dict_from_jax(params, cfg, tables)
+    assert set(sd) == set(model.state_dict())
+    assert "pos_embedding" not in dict(model.named_parameters())
+    assert ("EntiNameEmb" in sd) == (case == "v7_emb")
+    back, back_tables = bigc_params_from_torch(
+        sd, JaxBigCConfig.from_dict(dict(
+            V7_CONFIG, use_clsme=V7_CASES[case][0]), variant="v7"))
+    flat_a = jax.tree_util.tree_flatten_with_path(params)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (path, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    np.testing.assert_array_equal(back_tables["pos_emb_table"],
+                                  tables["pos_emb_table"])
+
+
+def test_v7_forward_parity_float32(v7_models):
+    """float32, the v10 tolerance: within 1e-4."""
+    _, models = v7_models
+    jout, tout = _forward_both(models,
+                               *_batches(_v7_records((1, 2))))
+    for k in ("pred_logits", "att", "enti_feat", "pred_queries"):
+        np.testing.assert_allclose(tout[k], jout[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_v7_forward_parity_bfloat16():
+    """bfloat16 compute, the v10 tolerances (logits 5e-2, att 1e-2)."""
+    models = _v7_models("v7_clsme", "bfloat16")
+    jout, tout = _forward_both(models,
+                               *_batches(_v7_records((1, 2))))
+    np.testing.assert_allclose(tout["pred_logits"], jout["pred_logits"],
+                               atol=5e-2)
+    np.testing.assert_allclose(tout["att"], jout["att"], atol=1e-2)
+
+
+def test_v7_infer_step_triplets_parity(v7_models):
+    """Valid masks, quintuples and windows exactly equal; scores 1e-5."""
+    _, (jmodel, params, model, _) = v7_models
+    jb, tb = _batches(_v7_records((6, 7, 8)))
+    jtrip = jax.device_get(jax_infer_step(jmodel, topk=3)(params, jb))
+    ttrip = build_infer_step(model, topk=3)(tb).numpy()
+    np.testing.assert_array_equal(ttrip.valid, np.asarray(jtrip.valid))
+    assert ttrip.valid.any()
+    v = ttrip.valid
+    np.testing.assert_array_equal(ttrip.quintuples[v],
+                                  np.asarray(jtrip.quintuples)[v])
+    np.testing.assert_array_equal(ttrip.dura_inters[v],
+                                  np.asarray(jtrip.dura_inters)[v])
+    np.testing.assert_allclose(ttrip.scores, np.asarray(jtrip.scores),
+                               atol=1e-5)
+
+
+def test_v7_sine_table_and_feature_width():
+    """Without a table v7 uses the sine positions (as the JAX model); the
+    classeme-in-features head needs exactly dim_feat + 300 channels, the
+    others ignore a classeme tail."""
+    from vidsgg_big_tpu.models.layers import (sine_pos_embedding as
+                                              jax_sine)
+    cfg = BigCConfig.from_dict(V7_CONFIG, variant="v7")
+    np.testing.assert_array_equal(
+        BigC(cfg).pos_embedding.numpy(),
+        jax_sine(cfg.num_querys, cfg.dim_pred))
+    _, tb = _batches(_v7_records((1,)))
+    with pytest.raises(ValueError, match="feature dim"):
+        BigC(cfg).eval()(tb.replace(feats=tb.feats[..., :-1]))
+    exp4_head = BigC(dataclasses.replace(cfg, use_clsme=False)).eval()
+    with torch.no_grad():
+        assert torch.isfinite(exp4_head(tb)["pred_logits"]).all()

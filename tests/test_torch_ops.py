@@ -206,3 +206,28 @@ def test_bucketed_batches(with_gt):
         assert (gts is None) == (jgts is None) == (not with_gt)
         if with_gt:
             _leaves_equal(gts, jgts)
+
+
+@pytest.mark.parametrize("value", [1, 31, 32, 33, 200, 299, 1024, 1500, 5000])
+def test_grounding_ladder_matches_jax(value):
+    """pick_unbounded's default is the grounding ladder, as in JAX, and it
+    doubles past the top instead of truncating."""
+    assert bucketing.GROUNDING_LADDER == jax_bucketing.GROUNDING_LADDER
+    assert bucketing.pick_unbounded(value) == \
+        jax_bucketing.pick_unbounded(value) >= value
+
+
+def test_vidor_synthetic_shapes():
+    """VidOR-shaped records (81/51 categories, RoI + classeme channels, a
+    two-part name) and I3D clip features of the JAX writer's shape
+    (data/synthetic_raw.py:167), seeded."""
+    prop, gt = synthetic.make_vidor_video(3, feat_dim=64 + 300,
+                                          video_len=2400)
+    assert prop.video_name == "synth_000003"
+    assert len(prop.video_name.split("_")) == 2
+    assert prop.features[0].shape[1] == 364
+    assert prop.cat_ids.max() < 81 and gt.pred_cat_ids.max() < 51
+    feats = synthetic.clip_features(3, 2400)
+    assert feats.shape == (299, 1024) == (synthetic.num_clips(2400), 1024)
+    np.testing.assert_array_equal(feats, synthetic.clip_features(3, 2400))
+    assert synthetic.num_clips(20) == 2

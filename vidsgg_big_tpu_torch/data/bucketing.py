@@ -25,7 +25,12 @@ def pick(value: int, ladder: Sequence[int]) -> int:
     return ladder[-1]
 
 
-def pick_unbounded(value: int, ladder: Sequence[int]) -> int:
+# the grounding stage's shape ladder (clip counts and unique-triplet counts)
+GROUNDING_LADDER = (32, 64, 128, 256, 512, 1024)
+
+
+def pick_unbounded(value: int,
+                   ladder: Sequence[int] = GROUNDING_LADDER) -> int:
     """Smallest ladder bucket holding ``value``; doubles past the top so no
     video is ever truncated."""
     for x in ladder:

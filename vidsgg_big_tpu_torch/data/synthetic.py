@@ -8,7 +8,9 @@ dataloaders/dataloader_vidvrd.py:327-455).  Proposals are noisy copies of GT
 trajectories plus distractors so that vIoU-based alignment has real signal.
 
 A copy of the JAX package's ``data/synthetic.py``: the same seed gives
-byte-identical records in both packages.
+byte-identical records in both packages.  :func:`make_vidor_video` and
+:func:`clip_features` add VidOR's shapes (``data/synthetic_raw.py`` of the
+JAX package writes them to disk; here they stay in memory).
 """
 from __future__ import annotations
 
@@ -124,3 +126,28 @@ def make_video(seed: int, *, video_len: int = 120, n_gt_trajs: int = 5,
 
 def make_dataset(n_videos: int, seed: int = 0, **kw):
     return [make_video(seed * 10_000 + i, **kw) for i in range(n_videos)]
+
+
+# VidOR's vocabularies and I3D clips (16 frames at half overlap)
+VIDOR_ENTI_CATS, VIDOR_PRED_CATS = 81, 51
+CLIP_LEN = 16
+
+
+def make_vidor_video(seed: int, *, feat_dim: int, **recipe):
+    """A VidOR-shaped (proposal, GT) record pair: 81 entity and 51
+    predicate categories, ``feat_dim`` = RoI + 300 classeme channels, named
+    ``synth_NNNNNN`` (two ``_`` parts, as VidOR's ``group_videoid``)."""
+    return make_video(seed, feat_dim=feat_dim, num_enti_cats=VIDOR_ENTI_CATS,
+                      num_pred_cats=VIDOR_PRED_CATS, **recipe)
+
+
+def num_clips(video_len: int) -> int:
+    """I3D clips of a video: max(2, (video_len - 16) // 8 + 1)."""
+    return max(2, (video_len - CLIP_LEN) // (CLIP_LEN // 2) + 1)
+
+
+def clip_features(seed: int, video_len: int, dim: int = 1024):
+    """Seeded I3D clip features of one video, (num_clips(video_len), dim)
+    float32."""
+    rng = np.random.default_rng((seed, video_len))
+    return rng.normal(size=(num_clips(video_len), dim)).astype(np.float32)

@@ -1,16 +1,18 @@
 """BIG-C: the predicate-query classification model, for the card.
 
-Port of the JAX package's ``models/big_c.py``, v10 variant (reference
-models/model_0v10.py:239-786, exported as ``BIG_C_vidvrd``), with the
-reference parameter names so a reference ``state_dict`` loads with
-``strict=True``.  One call processes a whole bucket of B videos:
+Port of the JAX package's ``models/big_c.py``: the v10 variant (reference
+models/model_0v10.py:239-786, exported as ``BIG_C_vidvrd``) and the v7
+variant (models/model_0v7.py, ``BIG_C_vidor``: a frozen query pos-table,
+an MLP head and the classeme switch), with the reference parameter names so
+a reference ``state_dict`` loads with ``strict=True``.  One call processes
+a whole bucket of B videos:
 
   tracklet geometry+RoI features (B, N, T, .)
     -> per-frame MLPs -> stride-2 temporal conv -> adaptive-max-pool to
        ``enco_pool_len`` -> per-tracklet node embedding (B, N, E)
     -> transformer encoder over the N tracklet tokens (masked)
     -> role-factored query decoder producing soft adjacency (B, 2, Q, N)
-    -> prediction head (I3D + name-embedding gathers + frequency-bias logits)
+    -> prediction head (I3D / classeme gathers + frequency-bias logits)
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from torch import nn
 from ..data.types import TrackletBatch
 from ..ops.segments import (stretch_conv_patches, adaptive_max_pool1d,
                             stretch_weighted_mean)
-from .layers import MLP, TransformerEncoderLayer, RoleAttnDecoderLayer
+from .layers import (MLP, TransformerEncoderLayer, RoleAttnDecoderLayer,
+                     sine_pos_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +47,29 @@ class BigCConfig:
     n_att_head: int = 8
     num_querys: int = 192
     dropout: float = 0.1
-    variant: str = "v10"          # only v10 is ported (v7: ROADMAP A7)
+    variant: str = "v10"          # "v10" (learned pos-emb, linear head)
+    #                               "v7" (frozen pos-table, MLP head)
+    use_clsme: bool = True        # v7 only: include classeme in the head
+    use_name_emb: bool = True     # v7: True -> EntiNameEmb lookup,
+    #                               False -> per-frame classeme channels
     # dtype of the per-frame encoder matmuls (params stay float32)
     compute_dtype: str = "float32"
+
+    @property
+    def clsme_in_feats(self) -> bool:
+        """Whether per-frame classeme channels ride after dim_feat in feats."""
+        return self.variant == "v7" and self.use_clsme and not self.use_name_emb
+
+    @property
+    def name_emb_in_head(self) -> bool:
+        """Whether the head reads the frozen ``EntiNameEmb`` table."""
+        return self.variant == "v10" or (self.use_clsme and self.use_name_emb)
 
     @classmethod
     def from_dict(cls, d: dict, variant: str = "v10"):
         """Build from a reference-style ``model_config`` dict (same keys;
-        the training keys wait for the training slice)."""
+        the training keys wait for the training slice).  v7 reads the name
+        embeddings only when the config names their file."""
         return cls(
             num_pred_cats=d["num_pred_cats"],
             num_enti_cats=d["num_enti_cats"],
@@ -64,6 +82,9 @@ class BigCConfig:
             n_deco_layers=d["n_deco_layers"],
             n_att_head=d["n_att_head"], num_querys=d["num_querys"],
             variant=variant,
+            use_clsme=d.get("use_clsme", True),
+            use_name_emb=(d.get("EntiNameEmb_path") is not None
+                          if variant == "v7" else True),
             compute_dtype=d.get("compute_dtype", "float32"),
         )
 
@@ -135,18 +156,22 @@ class TrackletEncoder(nn.Module):
 
 
 class BigC(TrackletEncoder):
-    """Batched BIG-C v10 forward.
+    """Batched BIG-C forward, v10 or v7.
 
     ``enti_name_emb`` fills the frozen ``EntiNameEmb`` buffer
-    (num_enti_cats, dim_clsme); ``generator`` seeds the initial weights.
+    (num_enti_cats, dim_clsme) of the heads that read it; ``generator``
+    seeds the initial weights.  v7 keeps its query positions in a frozen
+    ``pos_embedding`` buffer: ``pos_emb_table`` when given, else the sine
+    table.  Reference quirk: model_0v7's init xavier-overwrites its sine
+    table, so every trained v7 checkpoint carries a random frozen table,
+    which loads with the rest of its ``state_dict``.
     """
 
     def __init__(self, cfg: BigCConfig, enti_name_emb=None,
-                 generator: Optional[torch.Generator] = None):
-        if cfg.variant != "v10":
-            raise NotImplementedError(
-                f"BigC variant {cfg.variant!r}: only v10 is ported so far "
-                "(v7 is ROADMAP item A7)")
+                 generator: Optional[torch.Generator] = None,
+                 pos_emb_table=None):
+        if cfg.variant not in ("v10", "v7"):
+            raise ValueError(f"BigC variant {cfg.variant!r}: v10 or v7")
         super().__init__(cfg.dim_enti, cfg.dim_feat, cfg.enco_pool_len,
                          cfg.compute_dtype)
         self.cfg = cfg
@@ -160,32 +185,49 @@ class BigC(TrackletEncoder):
                                  cfg.dim_ffn, cfg.dropout)
             for _ in range(cfg.n_deco_layers))
         self.pred_query_init = nn.Parameter(torch.empty(cfg.num_querys, dp))
-        self.pos_embedding = nn.Parameter(torch.empty(cfg.num_querys, dp))
+        if cfg.variant == "v7":
+            table = (sine_pos_embedding(cfg.num_querys, dp)
+                     if pos_emb_table is None else pos_emb_table)
+            self.register_buffer("pos_embedding", torch.as_tensor(
+                np.asarray(table, np.float32)).reshape(cfg.num_querys, dp))
+        else:
+            self.pos_embedding = nn.Parameter(torch.empty(cfg.num_querys,
+                                                          dp))
         self.bias_matrix = nn.Parameter(torch.zeros(
             cfg.num_enti_cats, cfg.num_enti_cats, cfg.num_pred_cats))
-        head_in = dp + 2 * cfg.dim_clsme + 2 * e
+        head_in = dp + 2 * e
         if cfg.dim_i3d:
             self.fc_i3d = MLP(cfg.dim_i3d, (e,))
             head_in += 2 * e
-        self.fc_pred2logits = nn.Linear(head_in, cfg.num_pred_cats)
-        emb = (torch.zeros(cfg.num_enti_cats, cfg.dim_clsme)
-               if enti_name_emb is None else
-               torch.as_tensor(np.asarray(enti_name_emb, np.float32)))
-        self.register_buffer("EntiNameEmb", emb)
+        if cfg.use_clsme or cfg.variant == "v10":
+            head_in += 2 * cfg.dim_clsme
+        if cfg.variant == "v7":
+            self.fc_pred2logits = MLP(head_in, (cfg.dim_ffn,
+                                                cfg.num_pred_cats),
+                                      final_relu=False)
+        else:
+            self.fc_pred2logits = nn.Linear(head_in, cfg.num_pred_cats)
+        if cfg.name_emb_in_head:
+            emb = (torch.zeros(cfg.num_enti_cats, cfg.dim_clsme)
+                   if enti_name_emb is None else
+                   torch.as_tensor(np.asarray(enti_name_emb, np.float32)))
+            self.register_buffer("EntiNameEmb", emb)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
-        """The JAX package's v10 init: xavier-normal weights (the packed
-        (3D, D) fan for in_proj), zero biases, N(0, 0.1) queries and
-        positional embedding, zero bias_matrix."""
+        """The JAX package's init: xavier-normal (v10) or xavier-uniform
+        (v7) weights (the packed (3D, D) fan for in_proj), zero biases,
+        N(0, 0.1) queries and v10 positional embedding, zero bias_matrix."""
+        xavier = (nn.init.xavier_uniform_ if self.cfg.variant == "v7"
+                  else nn.init.xavier_normal_)
         for name, p in self.named_parameters():
             if name in ("pred_query_init", "pos_embedding"):
                 p.normal_(0.0, 0.1, generator=generator)
             elif name == "bias_matrix" or p.ndim == 1:
                 p.zero_()
             elif p.ndim >= 2:
-                nn.init.xavier_normal_(p, generator=generator)
+                xavier(p, generator=generator)
         for mod in self.modules():
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
@@ -194,11 +236,19 @@ class BigC(TrackletEncoder):
         """Returns dict with pred_queries (B,Q,Dp), pred_logits (B,Q,C),
         att (B,2,Q,N) float32, enti_feat (B,N,E)."""
         cfg = self.cfg
-        expect = cfg.dim_feat + (cfg.dim_i3d or 0)
-        if batch.feats.shape[-1] != expect:
+        consumed = (cfg.dim_i3d or 0) + (
+            cfg.dim_clsme if cfg.clsme_in_feats else 0)
+        expect = cfg.dim_feat + consumed
+        width = batch.feats.shape[-1]
+        # the paths that read the tail (v10 I3D, v7 classeme) take exactly
+        # the on-disk width; otherwise tail channels are ignored, as the
+        # reference slices [..., :dim_feat] (VidOR files always carry the
+        # 300-d classeme, which the exp4 head never reads)
+        if (width != expect) if consumed else (width < expect):
             raise ValueError(
-                f"feature dim {batch.feats.shape[-1]} != dim_feat+dim_i3d = "
-                f"{expect}; check dataset fmt vs config")
+                f"feature dim {width} does not fit dim_feat {cfg.dim_feat} "
+                f"+ {consumed} channels the head reads; check dataset fmt "
+                "vs config")
         enti2enco = self.encode(batch)
         mask = batch.traj_mask
         out = enti2enco
@@ -214,7 +264,7 @@ class BigC(TrackletEncoder):
                                       enco_output, mask)
 
         extra_avg = None
-        if cfg.dim_i3d:
+        if consumed:
             # the reference averages over the *stretched* axis
             # (model_0v10.py:470): a repeat-counts-weighted raw-frame mean
             lengths = batch.durations[..., 1] - batch.durations[..., 0] + 1
@@ -227,7 +277,9 @@ class BigC(TrackletEncoder):
 
     def _prediction_head(self, pred_queries, att, cat_ids, extra_avg,
                          enti_feat):
-        """Reference model_0v10.py:478-507, batched."""
+        """Reference model_0v10.py:478-507 / model_0v7.py:483-511,
+        batched."""
+        cfg = self.cfg
         pred_soid = torch.argmax(att, dim=-1)                 # (B, 2, Q)
         pred_socat = torch.gather(
             cat_ids[:, None, :].expand(-1, 2, -1), -1, pred_soid).long()
@@ -239,14 +291,20 @@ class BigC(TrackletEncoder):
 
         sub_feat = gather_traj(enti_feat, pred_soid[:, 0])
         obj_feat = gather_traj(enti_feat, pred_soid[:, 1])
-        sub_clsme = self.EntiNameEmb[pred_socat[:, 0]]
-        obj_clsme = self.EntiNameEmb[pred_socat[:, 1]]
-        if self.cfg.dim_i3d:  # reference model_0v10.py:495-501
+        if cfg.clsme_in_feats:
+            sub_clsme = gather_traj(extra_avg, pred_soid[:, 0]).float()
+            obj_clsme = gather_traj(extra_avg, pred_soid[:, 1]).float()
+        elif cfg.name_emb_in_head:
+            sub_clsme = self.EntiNameEmb[pred_socat[:, 0]]
+            obj_clsme = self.EntiNameEmb[pred_socat[:, 1]]
+        if cfg.dim_i3d:  # reference model_0v10.py:495-501
             # a bf16 i3d mean runs fc_i3d in bf16; the head is float32
             sub_i3d = self.fc_i3d(gather_traj(extra_avg, pred_soid[:, 0]))
             obj_i3d = self.fc_i3d(gather_traj(extra_avg, pred_soid[:, 1]))
             parts = [pred_queries, sub_i3d.float(), obj_i3d.float(),
                      sub_feat, obj_feat, sub_clsme, obj_clsme]
+        elif cfg.variant == "v7" and not cfg.use_clsme:
+            parts = [pred_queries, sub_feat, obj_feat]
         else:
             parts = [pred_queries, sub_clsme, obj_clsme, sub_feat, obj_feat]
         logits = self.fc_pred2logits(torch.cat(parts, dim=-1))

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,8 +26,21 @@ def _linear(layer: nn.Linear, x):
     """``layer(x)``; a bf16/fp16 input runs with the weights cast to its
     dtype and keeps it (flax ``nn.Dense(dtype=x.dtype)``)."""
     if x.dtype in _LOW:
-        return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+        bias = None if layer.bias is None else layer.bias.to(x.dtype)
+        return F.linear(x, layer.weight.to(x.dtype), bias)
     return layer(x)
+
+
+def sine_pos_embedding(length: int, d_model: int) -> np.ndarray:
+    """Sinusoidal positional embedding (reference models/model_0v10.py:
+    228-237; the grounding QANet's clip positions use the same table),
+    (length, d_model) float32."""
+    i = np.arange(d_model)
+    freqs = np.where(i % 2 == 0, 10000.0 ** (-i / d_model),
+                     -(10000.0 ** ((1 - i) / d_model)))
+    phases = np.where(i % 2 == 0, 0.0, np.pi / 2)
+    pos = np.arange(length)[:, None].astype(np.float64)
+    return np.sin(pos * freqs[None, :] + phases[None, :]).astype(np.float32)
 
 
 class MLP(nn.Sequential):

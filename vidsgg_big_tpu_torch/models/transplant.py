@@ -1,8 +1,9 @@
-"""JAX-parameter -> port ``state_dict`` conversion for BIG-C v10.
+"""JAX-parameter -> port ``state_dict`` conversion (BIG-C and grounding).
 
-The exact inverse of ``bigc_params_from_torch`` in the JAX package's
-``models/transplant.py``: the port keeps the reference torch parameter
-names and layouts, so these are layout conversions only.
+The exact inverses of ``bigc_params_from_torch`` and
+``grounding_params_from_torch`` in the JAX package's ``models/transplant.py``:
+the port keeps the reference torch parameter names and layouts, so these
+are layout conversions only.
 
   * Dense kernel (in, out)          -> ``nn.Linear`` weight (out, in)
   * Conv kernel (k, in, out)        -> ``nn.Conv1d`` weight (out, in, k)
@@ -13,11 +14,16 @@ names and layouts, so these are layout conversions only.
   * ``fc_enti2enco``: the JAX model flattens the pooled node tensor
     bin-major, the reference channel-major; the first layer's input rows
     are permuted back.
+  * grounding: depthwise/pointwise conv kernels (k, in/groups, out) ->
+    (out, in/groups, k); QANet ``attn_{q,k,v,out}`` -> packed ``mh_attn``;
+    conv heads ``conv{i}`` / ``out`` -> ``{i}.0`` / ``4``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .layers import sine_pos_embedding
 
 
 def _t(x):
@@ -60,14 +66,14 @@ def _enti2enco(out, p, cfg):
 
 def bigc_state_dict_from_jax(params, cfg, tables=None):
     """Port ``state_dict`` of :class:`BigC` from the JAX ``{"params": ...}``
-    tree (numpy or JAX arrays) of a v10 model.
+    tree (numpy or JAX arrays) of a v10 or v7 model.
 
-    ``tables`` is the ``{"enti_name_emb": ...}`` dict that
-    ``bigc_params_from_torch`` returns beside the params; a missing table
-    gives a zero ``EntiNameEmb`` buffer, as the JAX CLIs use.
+    ``tables`` is the ``{"enti_name_emb": ..., "pos_emb_table": ...}`` dict
+    that ``bigc_params_from_torch`` returns beside the params.  A missing
+    name table gives a zero ``EntiNameEmb`` buffer, as the JAX CLIs use; a
+    v7 model without ``pos_emb_table`` has the sine table, as the JAX model.
     """
-    if cfg.variant != "v10":
-        raise NotImplementedError("only BIG-C v10 is ported (v7: ROADMAP A7)")
+    tables = tables or {}
     p = params["params"]
     te = p["tracklet_encoder"]
     out = {}
@@ -97,14 +103,59 @@ def bigc_state_dict_from_jax(params, cfg, tables=None):
         _dense(out, f"{t}.fc2.3", src["fc2_1"])
         _layernorm(out, f"{t}.norm3", src["norm3"])
     out["pred_query_init"] = _t(p["pred_query_init"])
-    out["pos_embedding"] = _t(p["pos_embedding"])
     out["bias_matrix"] = _t(p["bias_matrix"])
     if cfg.dim_i3d:
         _mlp(out, "fc_i3d", p["fc_i3d"], (0,))
-    _dense(out, "fc_pred2logits", p["fc_pred2logits"])
-    emb = (tables or {}).get("enti_name_emb")
-    out["EntiNameEmb"] = (_t(emb) if emb is not None else
-                          torch.zeros(cfg.num_enti_cats, cfg.dim_clsme))
+    if cfg.variant == "v7":
+        pos = tables.get("pos_emb_table")
+        out["pos_embedding"] = _t(pos if pos is not None else
+                                  sine_pos_embedding(cfg.num_querys,
+                                                     cfg.dim_pred))
+        _mlp(out, "fc_pred2logits", p["fc_pred2logits"], (0, 2))
+    else:
+        out["pos_embedding"] = _t(p["pos_embedding"])
+        _dense(out, "fc_pred2logits", p["fc_pred2logits"])
+    if cfg.name_emb_in_head:
+        emb = tables.get("enti_name_emb")
+        out["EntiNameEmb"] = (_t(emb) if emb is not None else
+                              torch.zeros(cfg.num_enti_cats, cfg.dim_clsme))
+    return out
+
+
+def _dwconv(out, prefix, p):
+    for nm in ("depth_wise", "point_wise"):
+        out[f"{prefix}.{nm}.weight"] = _t(
+            np.asarray(p[nm]["kernel"]).transpose(2, 1, 0))
+        out[f"{prefix}.{nm}.bias"] = _t(p[nm]["bias"])
+
+
+def _qanet_layer(out, prefix, p, num_conv=4):
+    _layernorm(out, f"{prefix}.normb", p["normb"])
+    _layernorm(out, f"{prefix}.norme", p["norme"])
+    _dense(out, f"{prefix}.fc", p["fc"])
+    _mha(out, f"{prefix}.mh_attn", {"q": p["attn_q"], "k": p["attn_k"],
+                                    "v": p["attn_v"], "out": p["attn_out"]})
+    for i in range(num_conv):
+        _dwconv(out, f"{prefix}.convs.{i}", p[f"conv{i}"])
+        _layernorm(out, f"{prefix}.norm_seq.{i}", p[f"norm{i}"])
+
+
+def grounding_state_dict_from_jax(params):
+    """Port ``state_dict`` of :class:`GroundingModel` from the JAX
+    ``{"params": ...}`` tree; the inverse of ``grounding_params_from_torch``.
+    The name tables are trainable parameters on both sides."""
+    p = params["params"]
+    out = {"EntiNameEmb": _t(p["EntiNameEmb"]),
+           "PredNameEmb": _t(p["PredNameEmb"])}
+    for name in ("video_fc", "query_fc", "temp_fc", "vq_fc"):
+        _dense(out, name, p[name])
+    out["proj2sim.weight"] = _t(np.asarray(p["proj2sim"]["kernel"]).T)
+    for name in ("video_encoder", "query_encoder", "combined_encoder"):
+        _qanet_layer(out, name, p[name])
+    for name in ("cls_head", "conf_head", "regr_head"):
+        for i in range(4):
+            _dwconv(out, f"{name}.{i}.0", p[name][f"conv{i}"])
+        _dwconv(out, f"{name}.4", p[name]["out"])
     return out
 
 

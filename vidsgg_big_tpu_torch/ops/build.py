@@ -23,7 +23,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "vidsgg_big_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every kernel source of the port, by library name
-KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu"}
+KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu",
+           "composed_attn": CSRC_DIR / "composed_attn.cu"}
 
 _loaded: dict = {}
 

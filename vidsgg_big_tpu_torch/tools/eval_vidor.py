@@ -1,0 +1,344 @@
+"""Evaluate on VidOR with the port: BIG-C v7 classification (stage A), then,
+with a grounding config, the grounding model's multi-bin temporal
+localisation of every predicted triplet (stage B), then the VidOR
+relation-detection metrics.
+
+Counterpart of the JAX package's ``tools/eval_vidor.py`` (the paper's
+classification-then-grounding evaluation; its GT comes from the records'
+own graphs).  Run as
+
+    python -m vidsgg_big_tpu_torch.tools.eval_vidor \\
+        --cfg_path experiments/exp4/config_.py \\
+        --grounding_cfg_path experiments/grounding_weights/config_.py \\
+        --synthetic 8 --synthetic_model_dims --batch_size 4 [--device cpu]
+
+This slice reads no dataset from disk: ``--synthetic N`` draws N in-memory
+VidOR-shaped records and their I3D clip features from ``data/synthetic``.
+Reading the on-disk VidOR splits is ROADMAP item A8.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.bucketing import BucketSpec, bucketed_batches, pick_unbounded
+from ..data.synthetic import clip_features, make_vidor_video, num_clips
+from ..evaluation.convert import EvalFmtCvtor
+from ..evaluation.metrics import eval_relation_with_gt
+from ..models.big_c import BigCConfig
+from ..models.grounding import GroundingConfig, GroundingModel
+from ..models.transplant import strip_module_prefix
+from ..train.grounding_data import prepare_grounding_queries
+from ..train.grounding_steps import build_grounding_infer_step
+from ..train.steps import build_infer_step
+from ..utils.config import parse_config_py
+from ..utils.device import resolve_device, strict_float32
+from ..utils.logger import create_logger
+from .eval_vidvrd import WEIGHT_SEED, build_model
+
+# stage A packs tracklets on this ladder (the JAX CLI's :71-72)
+STAGE_A_N_LADDER = (8, 16, 32, 64, 128, 192)
+# full-size VidOR-shaped videos: 2,400 frames (299 I3D clips, the T=512
+# grounding bucket), 12 GT + 34 distractor tracklets (46, the N=64 bucket)
+FULL_SIZE_RECIPE = dict(video_len=2400, n_gt_trajs=12, n_preds=16,
+                        n_distractors=34)
+# RoI width without --synthetic_model_dims (the JAX synthetic VidOR
+# default); VidOR features always carry 300 classeme channels after it
+SMALL_DIM_FEAT = 64
+DIM_CLASSEME = 300
+STAGE_B_MIN_BATCH = 4
+# flags of the JAX CLI that this slice leaves out, with their ROADMAP item
+LEFT_OUT = {"use_baseline": "A7b (Base-C)", "mesh": "A9 (multi-GPU)",
+            "zeroshot": "A10 (zero-shot eval)",
+            "gt_json": "A8 (on-disk data)",
+            "save_hit_infos": "A10 (hit infos)"}
+
+
+def synthetic_records(n_videos: int, dim_feat: int, model_dims: bool):
+    """(proposal, GT) records, generated lazily; video i is seeded with i
+    and named ``synth_{i:06d}``."""
+    feat = (dim_feat if model_dims else SMALL_DIM_FEAT) + DIM_CLASSEME
+    recipe = FULL_SIZE_RECIPE if model_dims else {}
+    return (make_vidor_video(i, feat_dim=feat, **recipe)
+            for i in range(n_videos))
+
+
+def _synthetic_seed(video_name: str) -> int:
+    return int(video_name.split("_")[1])
+
+
+def build_grounding_model(cfg: GroundingConfig, ckpt_path=None):
+    """GroundingModel on the CPU: random weights from ``WEIGHT_SEED``, or a
+    reference-named checkpoint (``module.`` prefixes stripped)."""
+    model = GroundingModel(
+        cfg, generator=torch.Generator().manual_seed(WEIGHT_SEED))
+    if ckpt_path:
+        sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        model.load_state_dict(strip_module_prefix(sd), strict=True)
+    return model
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def classify(args, logger, all_cfgs, records, device):
+    """Stage A: BIG-C v7 inference -> ({video: Triplets (numpy)}, light
+    rows (proposal without features, GT), stats)."""
+    mc = all_cfgs["model_config"]
+    if args.compute_dtype:
+        mc = dict(mc, compute_dtype=args.compute_dtype)
+    topk = args.topk or all_cfgs.get("inference_config", {}).get("topk", 10)
+    cfg = BigCConfig.from_dict(mc, variant="v7")
+    feat = (cfg.dim_feat if args.synthetic_model_dims else SMALL_DIM_FEAT) \
+        + DIM_CLASSEME
+    spec = BucketSpec(feat_dim=feat, n_ladder=STAGE_A_N_LADDER)
+    model = build_model(cfg, mc, args.ckpt_path)
+    if args.ckpt_path:
+        logger.info(f"loaded stage-A checkpoint {args.ckpt_path}")
+    infer = build_infer_step(model.to(device), topk=topk)
+    feat_dtype = getattr(torch, args.feat_dtype)
+    results, rows = {}, []
+    n_batches, seconds = 0, 0.0
+    for _, brows, props, _ in bucketed_batches(records, spec,
+                                               args.batch_size,
+                                               with_gt=False):
+        props = props.to(device, feats=feat_dtype)
+        _sync(device)
+        t0 = time.perf_counter()
+        trip = infer(props).numpy()       # the host copy ends the device work
+        seconds += time.perf_counter() - t0
+        n_batches += 1
+        for i, (prop, gt) in enumerate(brows):
+            results[prop.video_name] = trip.video(i)
+            # light rows for stage B and the GT: features dropped
+            rows.append((dataclasses.replace(prop, features=[]), gt))
+    logger.info(f"stage A done on {len(results)} videos in {n_batches} "
+                f"batches, {seconds:.3f} s in forward + triplets")
+    return results, rows, dict(stage_a_batches=n_batches,
+                               stage_a_seconds=seconds)
+
+
+def _expand_bins(prop, quint, scores3, duras, pooled, bins_probs, bins_mask):
+    """(K+1)-bin expansion of one video's triplets (a copy of the JAX
+    CLI's): score = cls score x bin prob, frames = round(norm span x
+    video_len), clipped into the subject∩object window."""
+    video_len = prop.video_len
+    m, k1 = bins_mask.shape
+    ds = duras[:, 0:1].astype(np.int64)
+    de = duras[:, 1:2].astype(np.int64)
+    fs = np.rint(pooled[..., 0] * video_len).astype(np.int64)   # (m, K1)
+    fe = np.rint(pooled[..., 1] * video_len).astype(np.int64)
+    fs = np.clip(fs, ds, de)
+    fe = np.clip(fe, fs, de)
+    scores = scores3.mean(-1)[:, None] * bins_probs             # (m, K1)
+    sel = bins_mask
+    if not sel.any():
+        return None
+    qq = np.broadcast_to(quint[:, None, :], (m, k1, 5))[sel]
+    return qq, scores[sel], np.stack([fs, fe], axis=-1)[sel]
+
+
+def ground(args, logger, results, rows, device):
+    """Stage B: every valid triplet becomes a grounding query; videos are
+    grouped on the (Q, T) grounding ladder and run in batches of
+    ``max(batch_size, 4)`` padded to one shape.  Returns (predicted
+    relations, stats)."""
+    grd_cfgs = parse_config_py(args.grounding_cfg_path)
+    gmc = grd_cfgs["model_config"]
+    if args.compute_dtype:
+        gmc = dict(gmc, compute_dtype=args.compute_dtype)
+    gcfg = GroundingConfig.from_dict(gmc)
+    icfg = grd_cfgs.get("inference_config", {})
+    model = build_grounding_model(gcfg, args.grounding_ckpt_path)
+    if args.grounding_ckpt_path:
+        logger.info(f"loaded stage-B checkpoint {args.grounding_ckpt_path}")
+    infer = build_grounding_infer_step(
+        model.to(device), score_th=icfg.get("score_th", 0.9),
+        tiou_th=icfg.get("tiou_th", 0.5),
+        bins_th=args.bins_th or icfg.get("bins_th", 0.2),
+        nms_th=icfg.get("nms_th", 0.8))
+    cvt = EvalFmtCvtor("vidor")
+    predict_relations, groups = {}, {}
+    for prop, _ in rows:
+        trip = results[prop.video_name]
+        if not trip.valid.any():
+            predict_relations[cvt._reset_video_name(prop.video_name)] = []
+            continue
+        v = trip.valid
+        work = (prop, trip.quintuples[v], trip.scores[v], trip.dura_inters[v])
+        key = (pick_unbounded(int(v.sum())),
+               pick_unbounded(num_clips(prop.video_len)))
+        groups.setdefault(key, []).append(work)
+
+    b = max(args.batch_size, STAGE_B_MIN_BATCH)
+    batches, seconds = [], 0.0
+    for q_bucket, t_bucket in sorted(groups):
+        group = groups[(q_bucket, t_bucket)]
+        logger.info(f"stage B: {len(group)} videos in (Q={q_bucket}, "
+                    f"T={t_bucket}) bucket (batch {b})")
+        for s in range(0, len(group), b):
+            chunk = group[s:s + b]
+            feats = np.zeros((b, t_bucket, gcfg.dim_feat), np.float32)
+            clips = np.zeros((b,), np.int64)
+            qc = np.zeros((b, q_bucket, 3), np.int64)
+            temp = np.zeros((b, q_bucket, 2), np.float32)
+            qm = np.zeros((b, q_bucket), bool)
+            for i, (prop, quint, _, duras) in enumerate(chunk):
+                vf = clip_features(_synthetic_seed(prop.video_name),
+                                   prop.video_len, gcfg.dim_feat)
+                nc = min(vf.shape[0], t_bucket)
+                feats[i, :nc] = vf[:nc]
+                clips[i] = nc
+                m = quint.shape[0]
+                q_cats, q_temp, _ = prepare_grounding_queries(
+                    quint, duras, None, prop.video_len)
+                qc[i, :m], temp[i, :m], qm[i, :m] = q_cats, q_temp, True
+            clip_mask = np.arange(t_bucket)[None] < clips[:, None]
+            operands = [torch.from_numpy(a).to(device) for a in (
+                feats, clip_mask, clips, qc, temp, qm)]
+            _sync(device)
+            t0 = time.perf_counter()
+            pooled, bins_probs, bins_mask = (
+                x.cpu().numpy() for x in infer(*operands))
+            seconds += time.perf_counter() - t0
+            batches.append([q_bucket, t_bucket, b])
+            for i, (prop, quint, scores3, duras) in enumerate(chunk):
+                m = quint.shape[0]
+                out = _expand_bins(prop, quint, scores3, duras,
+                                   pooled[i, :m], bins_probs[i, :m],
+                                   bins_mask[i, :m])
+                if out is None:
+                    predict_relations[
+                        cvt._reset_video_name(prop.video_name)] = []
+                    continue
+                predict_relations.update(cvt.to_eval_format_pr(prop, out))
+    logger.info(f"stage B done in {len(batches)} batches, {seconds:.3f} s "
+                "in forward + decode")
+    return predict_relations, dict(stage_b_batches=batches,
+                                   stage_b_seconds=seconds)
+
+
+def inference_then_eval(args) -> dict:
+    for flag, item in LEFT_OUT.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP {item})")
+    if not args.synthetic:
+        raise SystemExit("this port reads no VidOR split from disk yet "
+                         "(ROADMAP A8); pass --synthetic N")
+    device = resolve_device(args.device)
+    strict_float32()
+    experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
+    log_dir = os.path.join(experiment_dir, "logfile")
+    os.makedirs(log_dir, exist_ok=True)
+    logger = create_logger(os.path.join(log_dir, "eval_vidor_torch.log"))
+    all_cfgs = parse_config_py(args.cfg_path)
+    records = synthetic_records(args.synthetic,
+                                all_cfgs["model_config"]["dim_feat"],
+                                args.synthetic_model_dims)
+    results, rows, stats = classify(args, logger, all_cfgs, records, device)
+    cvt = EvalFmtCvtor("vidor")
+    if args.grounding_cfg_path:
+        predict_relations, b_stats = ground(args, logger, results, rows,
+                                            device)
+        stats.update(b_stats)
+    else:
+        predict_relations = {}
+        for prop, _ in rows:
+            predict_relations.update(
+                cvt.to_eval_format_pr(prop, results[prop.video_name]))
+    gt_relations = {}
+    for _, gt in rows:
+        gt_relations.update(cvt.to_eval_format_gt(gt))
+
+    mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
+        dataset_type="vidor", logger=logger,
+        prediction_results=predict_relations, gt_relations=gt_relations)
+    metrics = {"mAP": float(mean_ap),
+               "recall": {str(k): float(v) for k, v in rec_at_n.items()},
+               "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
+    if args.metrics_json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.metrics_json)),
+                    exist_ok=True)
+        with open(args.metrics_json, "w") as f:
+            json.dump(metrics, f, indent=1)
+        logger.info(f"metrics json saved at {args.metrics_json}")
+    if args.save_json_results:
+        split = all_cfgs.get("test_dataset_config", {}).get("split", "val")
+        p = os.path.join(experiment_dir,
+                         f"VidOR{split}_predict_relations_torch.json")
+        with open(p, "w") as f:
+            json.dump(predict_relations, f)
+        logger.info(f"predict_relations saved at {p}")
+    return dict(metrics, **stats, n_videos=len(rows),
+                n_relations=sum(len(v) for v in predict_relations.values()),
+                device=str(device))
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--cfg_path", type=str, required=True,
+                        help="stage-A (BIG-C v7) experiment config")
+    parser.add_argument("--grounding_cfg_path", type=str, default=None,
+                        help="stage-B grounding config; without it the "
+                             "stage-A triplets are scored as they are")
+    ckpt_help = ("torch state_dict in the reference parameter names "
+                 "('module.' prefixes are stripped); default: random "
+                 "weights from a fixed seed")
+    parser.add_argument("--ckpt_path", type=str, default=None,
+                        help=ckpt_help + ".  A v7 checkpoint carries its "
+                             "frozen pos_embedding table, so no "
+                             "--tables_path is needed")
+    parser.add_argument("--grounding_ckpt_path", type=str, default=None,
+                        help=ckpt_help)
+    parser.add_argument("--output_dir", type=str, default=None,
+                        help="log and result directory (default: the "
+                             "config's directory)")
+    parser.add_argument("--topk", type=int, default=None)
+    parser.add_argument("--bins_th", type=float, default=None)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="stage-A batch; stage B runs max(this, 4)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; pass cpu to run "
+                             "without a card)")
+    parser.add_argument("--metrics_json", type=str, default=None,
+                        help="write {mAP, recall@K, tagging P@K} as JSON")
+    parser.add_argument("--save_json_results", action="store_true")
+    parser.add_argument("--feat_dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="stage-A feature dtype on the device (packing "
+                             "is float32; the cast follows the copy)")
+    parser.add_argument("--compute_dtype", type=str, default=None,
+                        choices=("float32", "bfloat16"),
+                        help="override the compute dtype of both stages "
+                             "(config key compute_dtype)")
+    parser.add_argument("--synthetic", type=int, default=0,
+                        help="evaluate on N in-memory VidOR-shaped videos "
+                             "with seeded I3D clip features (reading the "
+                             "on-disk VidOR splits is ROADMAP A8)")
+    parser.add_argument("--synthetic_model_dims", action="store_true",
+                        help="full-size synthetic videos: RoI features at "
+                             "the config's dim_feat (+300 classeme) and "
+                             "2,400-frame videos with 46 tracklets")
+    for flag, item in LEFT_OUT.items():
+        kind = dict(type=str, default=None) if flag in ("mesh", "gt_json") \
+            else dict(action="store_true")
+        parser.add_argument(f"--{flag}", **kind,
+                            help=f"not ported yet (ROADMAP {item}); raises")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    return inference_then_eval(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

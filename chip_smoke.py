@@ -12,9 +12,13 @@ Phases; any failure exits non-zero and prints no result line:
      paths' shapes, and its time beside the plain version's and its bound
      (CUDA events): role attention at exp2 N=50, exp4 N=180 and the VidOR
      stage-A bucket N=192, B in {1, 8, 32}, padded videos included, timed
-     at exp2 B=8; composed attention at T in {128, 512, 1024} x R in {4,
-     64, 1024} rows, float32 and bfloat16, masked keys and a fully masked
-     row, timed at R=1024, T=512 beside PyTorch's SDPA;
+     at exp2 B=8; composed attention: the inference forward at T in {128,
+     512, 1024} x R in {4, 64, 1024}, the train forward (dropout 0 and
+     0.1) and the backward at T in {128, 512} x R in {4, 64, 1024} and
+     (R=64, T=1024), float32 and bfloat16, masked keys and a fully masked
+     row; the dropout keep-mask read out of the kernel exactly and its
+     realized rate; timed at R=1024, T=512 beside PyTorch's SDPA (forward;
+     forward + backward minus forward);
   3. the main paths at full width, each with every launch count set to 0
      just before it and read just after:
      a. BIG-C v10 inference at the VidVRD exp2 geometry (N=50 tracklets x
@@ -26,14 +30,26 @@ Phases; any failure exits non-zero and prints no result line:
         grounding_weights model (dim_hidden 128, 10 bins) on 299-clip I3D
         features, stage A keeping 10 predicates per query, stage B batched
         at (Q, T=512) with Q reaching 256 or more;
-     both in float32 and in bfloat16;
+     c. the grounding train step (build_grounding_train_step) at bench.py's
+        train geometry, B=8 videos x P=64 predicate slots x T=512 clips
+        (R = B x 2P = 1024 rows in the combined encoder), dropout 0.1:
+        ms/step, videos/s and peak memory, one composed forward and one
+        backward launch per step;
+     d. the train_vidor --train_grounding entry point on grounding_weights
+        with full-size synthetic videos (P=200 slots: R = 3,200 rows at
+        batch 8), stopped after a step as on SIGTERM and resumed from its
+        checkpoint;
+     each in float32 and in bfloat16;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
-     against the port's CPU run on the same weights (float32); the
-     steady-state exp2 videos/s, the grounding inference ms/video at that
-     geometry and the two-stage videos/s;
+     against the port's CPU run on the same weights (float32); one train
+     step's loss and gradients (R=64, T=512, dropout 0) on the card against
+     the CPU; the steady-state exp2 videos/s, the grounding inference
+     ms/video at that geometry and the two-stage videos/s;
   5. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +90,27 @@ VAL_TOL = dict(rtol=1e-4, atol=1e-5)
 # (2^-9 relative) either way, so outputs of size ~0.1 agree to about 2e-3
 COMPOSED_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
                 torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# composed backward, kernel vs plain: float32 sums in another order; in
+# bfloat16 both round a_d and ds to bf16 before their products and the
+# gradients after, with float32 sums in another order in between: one bf16
+# step (2^-8 relative) at most, ~1e-3 on gradients of size ~0.3
+COMPOSED_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+                    torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
+DROPOUT = 0.1                      # GroundingConfig.attn_dropout
+# one train step, card vs CPU (float32, no TF32, dropout 0): the loss terms
+# and each gradient leaf, after sums in another order through three QANet
+# blocks, the fusion and three conv heads whose logits saturate at the
+# reference init
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+# bench.py's grounding train geometry (bench.py:253-316): 8 videos x 64
+# predicate slots, positive and negative queries through one forward
+TR_B, TR_P = 8, 64
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+# the entry point: videos, batch and steps before the stop, by dtype (f32
+# at a batch whose float32 activations fit the card's 80 GB)
+ENTRY_RUNS = {"bfloat16": dict(videos=16, batch=8, stop_after=1),
+              "float32": dict(videos=8, batch=4, stop_after=1)}
 
 
 def log(msg):
@@ -123,10 +160,14 @@ def role_attn_bound(p, e, enco, mask):
 
 def kernel_counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from vidsgg_big_tpu_torch.ops.composed_attn import composed_attention
+    from vidsgg_big_tpu_torch.ops.composed_attn import (
+        composed_attention, composed_attention_backward,
+        composed_attention_train)
     from vidsgg_big_tpu_torch.ops.role_attn import role_attention
     return {"role_attention": role_attention,
-            "composed_attention": composed_attention}
+            "composed_attention": composed_attention,
+            "composed_attention_train": composed_attention_train,
+            "composed_attention_backward": composed_attention_backward}
 
 
 def reset_counts():
@@ -215,15 +256,79 @@ def composed_bound(qh, x, vt, bias):
         "bytes" if t_bytes >= t_ops else "operations")
 
 
+def card_seeds(r, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (r,), dtype=torch.int32,
+                         generator=g).cuda()
+
+
+def composed_bwd_bound(qh, x, vt, bias):
+    """(bound ms, what bounds it) of one backward call: qh, vt, x, do,
+    bias and the forward's statistics read once, dqh, dvt and dx written
+    once; the TPU kernel's 10 T^2 d FLOP per row and head at the inputs'
+    peak."""
+    from vidsgg_big_tpu_torch.ops.composed_attn import fused_attention_flops
+    r, h, t, d = qh.shape
+    nbytes = 2 * (qh.numel() + vt.numel()) * x.element_size() \
+        + 3 * x.numel() * x.element_size() + bias.numel() * 4 \
+        + r * h * t * 2 * 4
+    peak = PEAK_BF16_FLOP_S if x.dtype == torch.bfloat16 else PEAK_F32_FLOP_S
+    t_ops = (fused_attention_flops(r, t, d, h, backward=True)
+             - fused_attention_flops(r, t, d, h)) / peak
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_dropout_mask(dtype):
+    """The train forward's keep-mask read out exactly: with vt_h the
+    identity for one head (key k -> channel k, T = d = 128) and zero for
+    the others, out[q, k] is that head's dropped weight, nonzero exactly
+    where the mask keeps.  Returns the realized keep rate over 8 heads x
+    64 rows x 128^2 weights."""
+    from vidsgg_big_tpu_torch.ops.composed_attn import composed_attention
+    from vidsgg_big_tpu_torch.ops.philox import (attention_keep,
+                                                 drop_threshold)
+    r, t = 64, 128
+    qh, x, _, _ = composed_inputs(r, t, dtype, seed=7)
+    bias = torch.zeros(r, t, device="cuda")
+    seeds = card_seeds(r, 7)
+    want = attention_keep(seeds, 8, t, t, DROPOUT)
+    kept = 0
+    for h in range(8):
+        vt = torch.zeros(r, 8, t, 128, device="cuda", dtype=dtype)
+        vt[:, h] = torch.eye(128, device="cuda", dtype=dtype)
+        out = composed_attention(qh, x, vt, bias, 0.25, DROPOUT, seeds)
+        torch.cuda.synchronize()
+        if not torch.equal(out != 0, want[:, h]):
+            raise AssertionError(f"{dtype} head {h}: the kernel's keep-mask "
+                                 "differs from the plain Philox mask")
+        kept += int(want[:, h].sum())
+    n = 8 * r * t * t
+    rate = kept / n
+    q = 1.0 - drop_threshold(DROPOUT)[0] / 2 ** 32
+    if abs(rate - q) > 4 * math.sqrt(q * (1 - q) / n):
+        raise AssertionError(f"keep rate {rate}, expected {q}")
+    log(f"composed_attention dropout {dtype}: keep-mask equal to the plain "
+        f"one on {n} weights, kept share {rate} (expected {q})")
+    return rate
+
+
 def check_composed_attention():
-    """Phase 2: composed attention, kernel vs plain at the grounding shapes,
-    timing at R=1024, T=512 (the bench geometry's combined encoder) beside
-    the plain version and PyTorch's SDPA on the same inputs."""
+    """Phase 2: composed attention, the three kernels (inference forward,
+    train forward with dropout, backward) vs their plain versions at the
+    grounding shapes; timing at R=1024, T=512 (the bench geometry's
+    combined encoder) beside the plain versions and PyTorch's SDPA on the
+    same inputs."""
     import torch.nn.functional as F
     from vidsgg_big_tpu_torch.ops.composed_attn import (
-        composed_attention, composed_attention_plain)
+        composed_attention, composed_attention_backward,
+        composed_attention_plain, composed_attention_plain_bwd,
+        composed_attention_train)
     scale = 0.25                       # 1/sqrt(hd), hd = 128 / 8
     max_err = {}
+    note = lambda key, err: max_err.__setitem__(key, max(max_err.get(
+        key, 0.0), err))
     for dtype in (torch.float32, torch.bfloat16):
         for t in (128, 512, 1024):
             for r in (4, 64, 1024):
@@ -235,13 +340,50 @@ def check_composed_attention():
                 if not torch.isfinite(out).all():
                     raise AssertionError("non-finite composed attention")
                 err = (out.float() - want.float()).abs().max().item()
-                max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+                note(("fwd", dtype), err)
                 log(f"composed_attention {dtype} R={r} T={t}: max |kernel "
                     f"- plain| = {err}")
                 del args, out, want
+        rate = check_dropout_mask(dtype)
+        for r, t in ((4, 128), (64, 128), (1024, 128), (4, 512), (64, 512),
+                     (1024, 512), (64, 1024)):
+            args = composed_inputs(r, t, dtype, seed=3 * r + t)
+            seeds = card_seeds(r, r + t)
+            do = (torch.randn(args[1].shape, generator=torch.Generator()
+                              .manual_seed(r)) * 0.5).to("cuda", dtype)
+            for p in (0.0, DROPOUT):
+                out, stats = composed_attention_train(*args, scale, p, seeds)
+                got = composed_attention_backward(*args, seeds, stats, do,
+                                                  scale, p)
+                torch.cuda.synchronize()
+                want = composed_attention_plain(*args, scale, p, seeds)
+                torch.testing.assert_close(out, want, **COMPOSED_TOL[dtype])
+                ferr = (out.float() - want.float()).abs().max().item()
+                if p > 0:
+                    note(("drop", dtype), ferr)
+                want = composed_attention_plain_bwd(*args, do, scale, p,
+                                                    seeds)
+                errs = []
+                for name, g, w in zip(("dqh", "dx", "dvt"), got, want):
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"non-finite {name}")
+                    torch.testing.assert_close(g, w,
+                                               **COMPOSED_BWD_TOL[dtype])
+                    errs.append((g.float() - w.float()).abs().max().item())
+                note(("bwd", dtype), max(errs))
+                log(f"composed_attention train {dtype} R={r} T={t} "
+                    f"dropout={p}: forward max |kernel - plain| = {ferr}; "
+                    f"backward dqh/dx/dvt {errs}")
+                del out, stats, got, want
+            del args, seeds, do
+        torch.cuda.empty_cache()
+        max_err[("rate", dtype)] = rate
+
     rows = []
+    tag = lambda dtype: "f32" if dtype == torch.float32 else "bf16"
     for dtype in (torch.float32, torch.bfloat16):
         qh, x, vt, bias = composed_inputs(G_B * G_Q, G_T, dtype, seed=0)
+        seeds = card_seeds(G_B * G_Q, 0)
         kv = x[:, None].expand(-1, 8, -1, -1)
         mask = bias[:, None, None, :].to(dtype)
         best = in_turns({
@@ -249,20 +391,74 @@ def check_composed_attention():
             "kernel": lambda: composed_attention(qh, x, vt, bias, scale),
             "library": lambda: F.scaled_dot_product_attention(
                 qh, kv, vt, attn_mask=mask, scale=scale).sum(1)})
+        drop = in_turns({
+            "plain": lambda: composed_attention_plain(
+                qh, x, vt, bias, scale, DROPOUT, seeds),
+            "kernel": lambda: composed_attention(qh, x, vt, bias, scale,
+                                                 DROPOUT, seeds),
+            "library": lambda: F.scaled_dot_product_attention(
+                qh, kv, vt, attn_mask=mask, scale=scale,
+                dropout_p=DROPOUT).sum(1)})
         bound_ms, bound_by = composed_bound(qh, x, vt, bias)
         log(f"composed_attention {dtype} R={G_B * G_Q} T={G_T}: kernel "
             f"{best['kernel']} ms, plain {best['plain']} ms, SDPA "
-            f"{best['library']} ms, bound {bound_ms} ms ({bound_by})")
+            f"{best['library']} ms, bound {bound_ms} ms ({bound_by}); "
+            f"dropout {DROPOUT}: kernel {drop['kernel']} ms, plain "
+            f"{drop['plain']} ms, SDPA {drop['library']} ms")
+        base = {"route": "cuda",
+                "source": "vidsgg_big_tpu_torch/csrc/composed_attn.cu",
+                "replaces": "vidsgg_big_tpu/ops/pallas_attention.py:67",
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(dict(base, name="composed_attention_" + tag(dtype),
+                         max_abs_err=max_err[("fwd", dtype)],
+                         ms=best["kernel"], plain_ms=best["plain"],
+                         library_ms=best["library"]))
+        rows.append(dict(base, name="composed_attention_dropout_" +
+                         tag(dtype), max_abs_err=max_err[("drop", dtype)],
+                         ms=drop["kernel"], plain_ms=drop["plain"],
+                         library_ms=drop["library"],
+                         keep_rate=max_err[("rate", dtype)]))
+        # backward: the train forward's statistics, a cotangent; SDPA's
+        # forward + backward of the same function minus its forward
+        _, stats = composed_attention_train(qh, x, vt, bias, scale, DROPOUT,
+                                            seeds)
+        do = (torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            1)) * 0.5).to("cuda", dtype)
+        lq, lkv, lv = (a.detach().clone().requires_grad_()
+                       for a in (qh, x, vt))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(
+                lq, lkv[:, None].expand(-1, 8, -1, -1), lv, attn_mask=mask,
+                scale=scale).sum(1)
+            o.backward(do)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(
+                    lq, lkv[:, None].expand(-1, 8, -1, -1), lv,
+                    attn_mask=mask, scale=scale).sum(1)
+        bwd = in_turns({
+            "plain": lambda: composed_attention_plain_bwd(
+                qh, x, vt, bias, do, scale, DROPOUT, seeds),
+            "kernel": lambda: composed_attention_backward(
+                qh, x, vt, bias, seeds, stats, do, scale, DROPOUT),
+            "library_fwd_bwd": sdpa_fwd_bwd, "library_fwd": sdpa_fwd})
+        bwd_bound, bwd_by = composed_bwd_bound(qh, x, vt, bias)
+        library = bwd["library_fwd_bwd"] - bwd["library_fwd"]
+        log(f"composed_attention backward {dtype} R={G_B * G_Q} T={G_T} "
+            f"dropout {DROPOUT}: kernel {bwd['kernel']} ms, plain "
+            f"{bwd['plain']} ms, SDPA forward+backward minus forward "
+            f"{library} ms, bound {bwd_bound} ms ({bwd_by})")
         rows.append({
-            "name": "composed_attention_" + (
-                "f32" if dtype == torch.float32 else "bf16"),
+            "name": "composed_attention_backward_" + tag(dtype),
             "route": "cuda",
-            "source": "vidsgg_big_tpu_torch/csrc/composed_attn.cu",
-            "replaces": "vidsgg_big_tpu/ops/pallas_attention.py:67",
-            "max_abs_err": max_err[dtype], "ms": best["kernel"],
-            "plain_ms": best["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": best["library"]})
-        del qh, x, vt, bias, kv, mask
+            "source": "vidsgg_big_tpu_torch/csrc/composed_attn_bwd.cu",
+            "replaces": "vidsgg_big_tpu/ops/pallas_attention.py:89",
+            "max_abs_err": max_err[("bwd", dtype)], "ms": bwd["kernel"],
+            "plain_ms": bwd["plain"], "bound_ms": bwd_bound,
+            "bound_by": bwd_by, "library_ms": library})
+        del qh, x, vt, bias, kv, mask, stats, do, lq, lkv, lv
         torch.cuda.empty_cache()
     return rows
 
@@ -360,6 +556,191 @@ def drive_vidor():
                 "expected one launch each, and at least one")
         results[name], per_run[name] = res, got
     return per_run, results
+
+
+def train_batch(b, p_bucket, wire, seed0=0):
+    """A grounding train batch of ``b`` full-size synthetic VidOR videos
+    (2,400 frames: 299 I3D clips in the T=512 bucket, 16 GT predicates in
+    ``p_bucket`` slots), as the train_vidor entry point packs it (CPU)."""
+    from vidsgg_big_tpu_torch.data.synthetic import (clip_features,
+                                                     make_vidor_video)
+    from vidsgg_big_tpu_torch.tools.eval_vidor import FULL_SIZE_RECIPE
+    from vidsgg_big_tpu_torch.tools.train_vidor import make_batch
+    rows = []
+    for i in range(seed0, seed0 + b):
+        _, gt = make_vidor_video(i, feat_dim=4, **FULL_SIZE_RECIPE)
+        rows.append((clip_features(i, gt.video_len, 1024), gt))
+    return make_batch(rows, G_T, b, 1024, p_bucket, wire)
+
+
+def grounding_train_parts(dtype, **overrides):
+    from vidsgg_big_tpu_torch.models.grounding import GroundingConfig
+    from vidsgg_big_tpu_torch.tools.eval_vidor import build_grounding_model
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    cfgs = parse_config_py(GRD_CFG)
+    cfg = dataclasses.replace(GroundingConfig.from_dict(dict(
+        cfgs["model_config"], compute_dtype=dtype)), **overrides)
+    return build_grounding_model(cfg), cfgs["train_config"]
+
+
+def drive_train_step(card):
+    """Phase 3c: build_grounding_train_step at bench.py's train geometry
+    (B=8 videos, P=64 slots, T=512: R=1024 rows in the combined encoder),
+    dropout 0.1, float32 then bfloat16.  Returns ({dtype: {kernel:
+    launches}}, {dtype: result})."""
+    from vidsgg_big_tpu_torch.tools.train_vidor import _to_device
+    from vidsgg_big_tpu_torch.train.grounding_steps import (
+        build_grounding_train_step)
+    from vidsgg_big_tpu_torch.train.loop import step_generator
+    from vidsgg_big_tpu_torch.train.train_state import TrainState
+    per_run, results = {}, {}
+    dev = torch.device("cuda")
+    for dtype in ("float32", "bfloat16"):
+        model, tc = grounding_train_parts(dtype)
+        model = model.cuda()
+        state = TrainState(model, tc["initial_lr"], tc["lr_decay"],
+                           [40, 60])
+        step = build_grounding_train_step(model, state)
+        batch = _to_device(train_batch(TR_B, TR_P, getattr(torch, dtype)),
+                           dev)
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_WARMUP):
+            step(*batch, generator=step_generator(1, i))["total"].item()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            metrics = step(*batch, generator=step_generator(
+                1, TRAIN_WARMUP + i))
+        loss = metrics["total"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"grounding train step {dtype} B={TR_B} P={TR_P} T={G_T} (R="
+            f"{TR_B * 2 * TR_P}): {ms} ms/step = {TR_B * 1e3 / ms} videos/s, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB, loss {loss}, launches "
+            f"{counts} on {card}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{dtype}: train loss {loss}")
+        if counts["composed_attention_train"] != TRAIN_STEPS or \
+                counts["composed_attention_backward"] != TRAIN_STEPS or \
+                counts["composed_attention"] != 0:
+            raise AssertionError(
+                f"{dtype}: launches {counts} over {TRAIN_STEPS} steps; "
+                "expected one train forward and one backward each")
+        per_run[dtype] = counts
+        results[dtype] = dict(ms_per_step=ms, videos_per_s=TR_B * 1e3 / ms,
+                              peak_bytes=peak, loss=loss)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    return per_run, results
+
+
+def drive_train_entry(card):
+    """Phase 3d: the train_vidor --train_grounding entry point on
+    grounding_weights with full-size synthetic videos, one epoch, stopped
+    after ``stop_after`` steps as on SIGTERM and resumed from the
+    checkpoint; bfloat16 at the config's batch 8, float32 at batch 4.
+    Returns ({dtype: {kernel: launches}}, {dtype: result})."""
+    import shutil
+    from vidsgg_big_tpu_torch.tools import train_vidor
+    per_run, results = {}, {}
+    for dtype, run in ENTRY_RUNS.items():
+        out = os.path.join(OUT_DIR, f"train_vidor_{dtype}")
+        shutil.rmtree(out, ignore_errors=True)
+        base = ["--train_grounding", "--cfg_path", GRD_CFG, "--synthetic",
+                str(run["videos"]), "--synthetic_model_dims",
+                "--batch_size", str(run["batch"]), "--epochs", "1",
+                "--compute_dtype", dtype, "--device", "cuda",
+                "--output_dir", out]
+        steps = run["videos"] // run["batch"]
+        reset_counts()
+        t0 = time.perf_counter()
+        first = train_vidor.main(base + ["--stop_after_batches",
+                                         str(run["stop_after"])])
+        second = train_vidor.main(base + ["--from_checkpoint"])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(out, "logfile", "metrics.jsonl")) as f:
+            losses = {r["step"]: r["value"] for r in map(json.loads, f)
+                      if r["tag"] == "loss/total"}
+        log(f"train_vidor {dtype} batch {run['batch']} (R="
+            f"{run['batch'] * 2 * 200} rows): stopped at step "
+            f"{first['step']}, resumed to {second['step']}; losses {losses};"
+            f" peak memory {first['max_memory_allocated'] / 2 ** 30:.2f} / "
+            f"{second['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
+            f"{seconds:.1f} s; launches {counts} on {card}")
+        if first["step"] != run["stop_after"] or second["step"] != steps:
+            raise AssertionError(f"{dtype}: steps {first['step']} then "
+                                 f"{second['step']}, expected "
+                                 f"{run['stop_after']} then {steps}")
+        if sorted(losses) != list(range(1, steps + 1)) or not all(
+                math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{dtype}: journal {losses}")
+        if counts["composed_attention_train"] != steps or \
+                counts["composed_attention_backward"] != steps:
+            raise AssertionError(f"{dtype}: launches {counts} over {steps} "
+                                 "steps")
+        per_run[dtype] = counts
+        results[dtype] = dict(first=first, second=second, seconds=seconds)
+    return per_run, results
+
+
+def check_train_parity():
+    """Phase 4 (training): one train step (R = 2 videos x 2 x 16 slots =
+    64 rows, T=512, dropout 0, the same Gumbel draw) on the card against
+    the port's CPU run on the same weights, float32.  A 256 MiB attention
+    budget sends the combined encoder down the composed path at this row
+    count, so the card runs the train forward and backward kernels."""
+    from vidsgg_big_tpu_torch.tools.train_vidor import _to_device
+    from vidsgg_big_tpu_torch.train.grounding_data import gumbel_noise
+    from vidsgg_big_tpu_torch.train.grounding_steps import (
+        grounding_train_loss)
+    model, _ = grounding_train_parts("float32", dropout=0.0,
+                                     attn_dropout=0.0,
+                                     attn_bytes_budget=1 << 28)
+    batch = train_batch(2, 16, torch.float32, seed0=20)
+    noise = gumbel_noise((2, 16, 51), torch.Generator().manual_seed(3))
+
+    def run(m, b):
+        m.train()
+        m.zero_grad()
+        total, terms = grounding_train_loss(m, *b, noise=noise.to(
+            b[0].device))
+        total.backward()
+        return ({k: v.item() for k, v in dict(terms, total=total).items()},
+                {k: p.grad.detach().cpu() for k, p in m.named_parameters()})
+    t0 = time.perf_counter()
+    cpu_terms, cpu_grads = run(model, batch)
+    seconds = time.perf_counter() - t0
+    reset_counts()
+    gpu_terms, gpu_grads = run(copy.deepcopy(model).cuda(),
+                               _to_device(batch, torch.device("cuda")))
+    counts = read_counts()
+    if counts["composed_attention_train"] != 1 or \
+            counts["composed_attention_backward"] != 1:
+        raise AssertionError(f"card train step launches {counts}")
+    log(f"train step on the CPU ({seconds:.1f} s) and the card: loss terms "
+        f"{cpu_terms} / {gpu_terms}")
+    worst = 0.0
+    for k, g in cpu_grads.items():
+        if not (torch.isfinite(g).all() and torch.isfinite(
+                gpu_grads[k]).all()):
+            raise AssertionError(f"non-finite gradient {k}")
+        scale = g.abs().max().item()
+        err = (gpu_grads[k] - g).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-12))
+        if err > TRAIN_GRAD_TOL * scale + 1e-6:
+            raise AssertionError(f"gradient {k}: max |card - CPU| {err}, "
+                                 f"max |CPU| {scale}")
+    for name, v in cpu_terms.items():
+        if abs(gpu_terms[name] - v) > TRAIN_LOSS_RTOL * abs(v):
+            raise AssertionError(f"loss {name}: card {gpu_terms[name]}, "
+                                 f"CPU {v}")
+    log(f"train step card vs CPU: worst gradient leaf max |diff| / max |g| "
+        f"= {worst}")
+    return worst
 
 
 def check_outputs(card):
@@ -518,19 +899,28 @@ def main():
     kernels = [check_role_attention()] + check_composed_attention()
     by_path = {"exp2_vidvrd": drive_exp2()}
     by_path["vidor_two_stage"], vidor = drive_vidor()
+    by_path["grounding_train_step"], train = drive_train_step(card)
+    by_path["train_vidor"], _ = drive_train_entry(card)
     # role attention runs in float32 under both compute dtypes; each
     # composed row counts the launches of its dtype's runs
-    rows_of = {"role_attention": ("role_attention", ("float32", "bfloat16")),
-               "composed_attention_f32": ("composed_attention", ("float32",)),
-               "composed_attention_bf16": ("composed_attention",
-                                           ("bfloat16",))}
+    rows_of = {"role_attention": ("role_attention", ("float32", "bfloat16"))}
+    for wrapper, row in (("composed_attention", "composed_attention"),
+                         ("composed_attention_train",
+                          "composed_attention_dropout"),
+                         ("composed_attention_backward",
+                          "composed_attention_backward")):
+        rows_of[row + "_f32"] = (wrapper, ("float32",))
+        rows_of[row + "_bf16"] = (wrapper, ("bfloat16",))
     for k in kernels:
         wrapper, dtypes = rows_of[k["name"]]
         k["launches_by_path"] = {
             p: sum(c[d][wrapper] for d in dtypes)
             for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']}: no launch on any path")
     check_outputs(card)
+    check_train_parity()
     ms_per_video = check_grounding(card)
     for dtype, res in vidor.items():
         seconds = res["stage_a_seconds"] + res["stage_b_seconds"]
@@ -539,6 +929,10 @@ def main():
             f"videos/s (stage A {res['stage_a_seconds']} s, stage B "
             f"{res['stage_b_seconds']} s); grounding at B={G_B} Q={G_Q} "
             f"T={G_T}: {ms_per_video[dtype]} ms/video; {card}")
+    for dtype, res in train.items():
+        log(f"grounding training {dtype}: {res['ms_per_step']} ms/step, "
+            f"{res['videos_per_s']} videos/s at B={TR_B} P={TR_P} T={G_T}, "
+            f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB; {card}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

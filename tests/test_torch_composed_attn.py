@@ -1,7 +1,9 @@
-"""The port's composed attention: its plain version against the JAX
-package's fused Pallas kernel (interpret mode) and the direct masked
-attention, ``composed_qkvo`` against JAX's, the CPU dispatch of the wrapper,
-and, on a card, the CUDA kernel against the plain version.
+"""The port's composed attention: its plain forward and backward against the
+JAX package's fused Pallas kernel (interpret mode, dropout 0: its PRNG is a
+zero stub there) and the direct masked attention, ``composed_qkvo`` against
+JAX's, the Philox keep-mask (known answers, determinism, realized rate),
+dropout statistics, the CPU dispatch of the wrappers, and, on a card, the
+CUDA kernels against the plain versions.
 
 The host with the card has no JAX, so JAX is imported by the tests that use
 it and the card's tests run without the repo's conftest (which imports JAX):
@@ -15,9 +17,12 @@ import pytest
 import torch
 
 from vidsgg_big_tpu_torch.ops.attention import chunked_attention, composed_qkvo
-from vidsgg_big_tpu_torch.ops.composed_attn import (composed_attention,
-                                                    composed_attention_plain,
-                                                    fused_composed_attention)
+from vidsgg_big_tpu_torch.ops.composed_attn import (
+    ComposedAttention, composed_attention, composed_attention_backward,
+    composed_attention_plain, composed_attention_plain_bwd,
+    composed_attention_train, fused_composed_attention)
+from vidsgg_big_tpu_torch.ops.philox import (attention_bits, attention_keep,
+                                             drop_threshold, philox4x32_10)
 
 # tests/test_pallas_attention.py's narrow shape: 4 heads of 8 at d = 64 (the
 # plain version takes any d; only the CUDA kernel needs d = 128)
@@ -138,22 +143,211 @@ def test_plain_chunks_rows():
 
 
 def test_wrapper_dispatch_on_cpu():
-    """CPU tensors take the plain version and count no launch; dropout
-    raises (grounding training is not ported); other devices raise."""
+    """CPU tensors take the plain versions and count no launch, dropout
+    included (it needs the rows' seeds); other devices raise."""
     rng = np.random.default_rng(4)
     qh, vt = (_t(rng.normal(size=(2, H, 64, D))) for _ in range(2))
     x = _t(rng.normal(size=(2, 64, D)))
     bias = torch.zeros(2, 64)
-    before = composed_attention.launches
+    seeds = torch.tensor([5, -7], dtype=torch.int32)
+    counters = (composed_attention, composed_attention_train,
+                composed_attention_backward)
+    before = [f.launches for f in counters]
     out = composed_attention(qh, x, vt, bias, 0.5)
-    assert composed_attention.launches == before
     torch.testing.assert_close(
         out, composed_attention_plain(qh, x, vt, bias, 0.5), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    dropped = composed_attention(qh, x, vt, bias, 0.5, dropout=0.1,
+                                 seeds=seeds)
+    torch.testing.assert_close(dropped, composed_attention_plain(
+        qh, x, vt, bias, 0.5, 0.1, seeds), rtol=0, atol=0)
+    assert not torch.equal(dropped, out)
+    grads = composed_attention_backward(qh, x, vt, bias, seeds, None, x,
+                                        0.5, 0.1)
+    for g, w in zip(grads, composed_attention_plain_bwd(
+            qh, x, vt, bias, x, 0.5, 0.1, seeds)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [f.launches for f in counters] == before
+    with pytest.raises(ValueError, match="seeds"):
         composed_attention(qh, x, vt, bias, 0.5, dropout=0.1)
     with pytest.raises(ValueError, match="unsupported device"):
         composed_attention(qh.to("meta"), x.to("meta"), vt.to("meta"),
                            bias.to("meta"), 0.5)
+
+
+# ---- Philox keep-mask -----------------------------------------------------
+
+def test_philox_known_answers():
+    """Random123's philox4x32-10 known-answer vectors (kat_vectors)."""
+    got = [int(w) for w in philox4x32_10(0, 0, 0, 0, 0, 0)]
+    assert got == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8]
+    got = [int(w) for w in philox4x32_10(
+        0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344, 0xa4093822,
+        0x299f31d0)]
+    assert got == [0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1]
+    ones = [int(w) for w in philox4x32_10(*([0xffffffff] * 6))]
+    assert ones == [0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd]
+
+
+def test_philox_mask_is_a_function_of_its_counter():
+    """The same (seed, head, query, key) gives the same bits in any call
+    and at any T (the forward, the backward and every bucket), and the 2 x 2
+    word layout puts word 2 (q & 1) + (k & 1) at (q, k)."""
+    seeds = torch.tensor([123, -9], dtype=torch.int32)
+    full = attention_bits(seeds, 3, 16, 12)
+    torch.testing.assert_close(attention_bits(seeds, 3, 16, 12), full,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(attention_bits(seeds, 3, 6, 8),
+                               full[:, :, :6, :8], rtol=0, atol=0)
+    words = philox4x32_10(5 >> 1, 7 >> 1, 2, 0, (-9) & 0xFFFFFFFF, 0)
+    assert int(full[1, 2, 5, 7]) == int(words[2 * (5 & 1) + (7 & 1)])
+    assert not torch.equal(full[0], full[1])          # rows differ
+
+
+def test_philox_realized_keep_rate():
+    """Over 2**21 draws the kept share is within 4 sigma of 1 - thr/2**32,
+    and the rescale is 1 / that share (``_drop_consts``)."""
+    p = 0.1
+    thr, inv = drop_threshold(p)
+    keep = attention_keep(torch.arange(8, dtype=torch.int32), 8, 128, 256, p)
+    q = 1.0 - thr / 2 ** 32
+    sigma = math.sqrt(q * (1 - q) / keep.numel())
+    assert keep.numel() >= 1 << 21
+    assert abs(keep.float().mean().item() - q) < 4 * sigma
+    assert inv == pytest.approx(1.0 / q, rel=1e-12)
+
+
+# ---- backward against JAX, dropout -----------------------------------------
+
+def _jax_grads(jax_ops, w, x, mask, dtype, cot):
+    """jax.grad of <fused_composed_attention, cot> (interpret mode) with
+    respect to x and the composites (wqk, wb, wvo, cb)."""
+    import jax
+    jnp, attention, pallas_attention = jax_ops
+    jdt = getattr(jnp, dtype)
+    comp = attention.composed_qkvo(*(jnp.asarray(w[k], jnp.float32) for k in (
+        "wq", "bq", "wk", "wv", "wo", "bv", "bo")))
+
+    def f(xx, cc):
+        o = pallas_attention.fused_composed_attention(
+            xx, jnp.asarray(mask), *cc, hd=HD, interpret=True)
+        return (o.astype(jnp.float32) * cot).sum()
+    return jax.grad(f, argnums=(0, 1))(jnp.asarray(x, jdt), comp)
+
+
+# float32: the same sums in another order.  bfloat16: qh, vt, A, ds and the
+# gradients are rounded to bf16 in both packages, at the same points but
+# after float32 sums taken in another order, so a last-bit difference
+# before a rounding can move a value by one bf16 step (2^-8 relative)
+GRAD_TOLS = {"float32": dict(rtol=1e-4, atol=1e-4),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_grad(jax_ops, dtype):
+    """The port's gradients through ComposedAttention (the plain backward
+    on the CPU) against jax.grad through the JAX fused kernel in interpret
+    mode, at dropout 0, with a fully masked row: x and the four
+    composites."""
+    w = _weights(6)
+    x, mask = _inputs(6, 3, 128, masked_row=True)
+    cot = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    want = _jax_grads(jax_ops, w, x, mask, dtype, cot)
+    xt = _t(x, getattr(torch, dtype)).requires_grad_()
+    comp = [c.requires_grad_() for c in _port_composites(w)]
+    out = fused_composed_attention(xt, torch.from_numpy(mask), *comp, hd=HD)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    got = [xt.grad] + [c.grad for c in comp]
+    import jax
+    for name, g, wv in zip(("x", "wqk", "wb", "wvo", "cb"), got,
+                           jax.tree_util.tree_leaves(want)):
+        scale = max(1.0, float(np.abs(np.asarray(wv, np.float32)).max()))
+        np.testing.assert_allclose(
+            g.float().numpy() / scale, np.asarray(wv, np.float32) / scale,
+            err_msg=name, **GRAD_TOLS[dtype])
+
+
+def test_b_k_gradient_is_exactly_zero():
+    """A QANet layer in train mode on the composed path (dropout on): b_k
+    drops out of the composed function, so its slice of the packed
+    in_proj_bias gets a gradient of exactly zero
+    (pallas_attention.py:31-33); b_q, b_v and the weights get gradients."""
+    from vidsgg_big_tpu_torch.models.grounding import QANetEncoderLayer
+    torch.manual_seed(0)
+    layer = QANetEncoderLayer(128, 4, 7, attn_bytes_budget=1 << 20).train()
+    with torch.no_grad():
+        layer.mh_attn.in_proj_weight.normal_(0, 0.05)
+        layer.mh_attn.in_proj_bias.normal_(0, 0.1)
+    x = torch.randn(8, 128, 128)
+    mask = torch.arange(128)[None] < torch.tensor([128, 91] * 4)[:, None]
+    calls = []
+    from vidsgg_big_tpu_torch.models import grounding
+    real = grounding.fused_composed_attention
+    grounding.fused_composed_attention = \
+        lambda *a, **k: calls.append(k["dropout"]) or real(*a, **k)
+    try:
+        out = layer(x, mask, generator=torch.Generator().manual_seed(1))
+    finally:
+        grounding.fused_composed_attention = real
+    assert calls == [0.1]
+    (out.float() ** 2).sum().backward()
+    gb = layer.mh_attn.in_proj_bias.grad
+    assert torch.count_nonzero(gb[128:256]) == 0
+    assert gb[:128].abs().sum() > 0 and gb[256:].abs().sum() > 0
+    assert layer.mh_attn.in_proj_weight.grad.abs().sum() > 0
+
+
+def _dropout_case(seed=3, b=2, t=128):
+    w = _weights(seed)
+    x, mask = _inputs(seed, b, t)
+    return _t(x), torch.from_numpy(mask), _port_composites(w)
+
+
+def test_dropout_deterministic_and_unbiased():
+    """Same generator state, same output; the mean over 24 seeds tracks
+    the deterministic output (correlation > 0.99), as
+    tests/test_pallas_attention.py:99-116 asks of the TPU kernel."""
+    x, mask, comp = _dropout_case()
+    run = lambda s: fused_composed_attention(
+        x, mask, *comp, hd=HD, dropout=0.3,
+        generator=torch.Generator().manual_seed(s))
+    torch.testing.assert_close(run(5), run(5), rtol=0, atol=0)
+    assert not torch.equal(run(5), run(6))
+    mean = torch.stack([run(100 + i) for i in range(24)]).mean(0)
+    ref = fused_composed_attention(x, mask, *comp, hd=HD)
+    corr = np.corrcoef(mean.numpy().ravel(), ref.numpy().ravel())[0, 1]
+    assert corr > 0.99, corr
+
+
+def test_dropout_backward_regenerates_the_forward_mask():
+    """The output is linear in vt for a fixed keep-mask, so f(vt + E) -
+    f(vt) = <df/dvt, E> holds iff the backward used the forward's mask
+    (tests/test_pallas_attention.py:156-181)."""
+    x, mask, comp = _dropout_case(seed=4)
+    wqk, wb, wvo, _ = comp
+    qh = (torch.einsum("btc,hce->bhte", x, wqk) + wb[None, :, None, :])
+    vt = torch.einsum("btc,hce->bhte", x, wvo)
+    bias = torch.where(mask, 0.0, -1e30)
+    seeds = torch.tensor([7, 11], dtype=torch.int32)
+    r = np.random.default_rng(9)
+    cot = _t(r.normal(size=x.shape))
+    eps = _t(r.normal(size=vt.shape)) * 0.1
+
+    def f(vt_):
+        return (ComposedAttention.apply(qh, x, vt_, bias, seeds, SCALE, 0.3)
+                * cot).sum()
+    v = vt.clone().requires_grad_()
+    f(v).backward()
+    lhs = float(f(vt + eps) - f(vt))
+    rhs = float((v.grad * eps).sum())
+    assert abs(lhs - rhs) / max(abs(lhs), 1e-6) < 1e-3, (lhs, rhs)
+    # and against another mask it fails
+    other = ComposedAttention.apply(qh, x, vt + eps, bias, seeds + 1, SCALE,
+                                    0.3)
+    lhs_other = float((other * cot).sum() - f(vt))
+    assert abs(lhs_other - rhs) / abs(rhs) > 1e-2
+
+
+SCALE = 1.0 / math.sqrt(HD)
 
 
 @pytest.fixture
@@ -218,5 +412,65 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         composed_attention(qh.transpose(2, 3).contiguous().transpose(2, 3), x,
                            vt, bias, 0.25)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="seeds"):
         composed_attention(qh, x, vt, bias, 0.25, dropout=0.1)
+
+
+def _card_seeds(r, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (r,), dtype=torch.int32,
+                         generator=g).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,t", [(4, 128), (3, 512)])
+def test_cuda_dropout_forward_matches_plain(cuda_device, dtype, r, t):
+    """The train instance at dropout 0.1 against the plain version on the
+    same seeds (the masks agree bit for bit, so the outputs agree to the
+    forward's tolerances); at dropout 0 it equals the inference
+    instance."""
+    qh, x, vt, bias = _card_inputs(r, t, dtype, cuda_device)
+    seeds = _card_seeds(r, cuda_device)
+    before = composed_attention_train.launches
+    out = composed_attention(qh, x, vt, bias, 0.25, dropout=0.1, seeds=seeds)
+    torch.cuda.synchronize()
+    assert composed_attention_train.launches == before + 1
+    want = composed_attention_plain(qh, x, vt, bias, 0.25, 0.1, seeds)
+    torch.testing.assert_close(out, want, **CARD_TOLS[dtype])
+    out0, stats = composed_attention_train(qh, x, vt, bias, 0.25, 0.0, seeds)
+    torch.testing.assert_close(out0, composed_attention(qh, x, vt, bias,
+                                                        0.25), rtol=0, atol=0)
+    assert stats.shape == (r, 8, t, 2) and torch.isfinite(stats).all()
+
+
+# kernel vs plain backward: float32 sums in another order; in bf16 both
+# round a_d and ds to bf16 before their products, after float32 sums taken
+# in another order (one bf16 step, 2^-8 relative, at most)
+CARD_GRAD_TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+                  torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("r,t", [(4, 128), (3, 512)])
+def test_cuda_backward_matches_plain(cuda_device, dtype, dropout, r, t):
+    qh, x, vt, bias = _card_inputs(r, t, dtype, cuda_device)
+    seeds = _card_seeds(r, cuda_device, seed=1)
+    do = (torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+          * 0.5).to(cuda_device, dtype)
+    _, stats = composed_attention_train(qh, x, vt, bias, 0.25, dropout,
+                                        seeds)
+    before = composed_attention_backward.launches
+    got = composed_attention_backward(qh, x, vt, bias, seeds, stats, do,
+                                      0.25, dropout)
+    torch.cuda.synchronize()
+    assert composed_attention_backward.launches == before + 1
+    want = composed_attention_plain_bwd(qh, x, vt, bias, do, 0.25, dropout,
+                                        seeds)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, **CARD_GRAD_TOLS[dtype])

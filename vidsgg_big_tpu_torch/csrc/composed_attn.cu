@@ -10,11 +10,25 @@
 //
 //   S_h = qh_h x^T * scale + bias      scale = 1/sqrt(hd), hd = d/H = 16
 //   A_h = softmax(S_h)                 over all T keys, in float32
-//   out = sum_h cast(A_h) vt_h         cast: to the input dtype; f32 sums
+//   Ã_h = A_h * keep_h / (1 - p)       train mode with dropout p only
+//   out = sum_h cast(Ã_h) vt_h         cast: to the input dtype; f32 sums
 //
 // bias is 0 for valid and -1e30 for masked keys, added in float32: a fully
 // masked row gives a uniform softmax (the mean of vt over T), as on the TPU;
-// callers re-zero such rows.  Dropout is not here (inference only).
+// callers re-zero such rows.
+//
+// Two instances of each kernel.  The inference instance (TRAIN = false) is
+// PR 2's kernel unchanged.  The train instance adds the attention-dropout
+// keep-mask (composed_attn_common.cuh: Philox keyed by the row's seed, the
+// head, the query and the key; thr = round(p * 2^32), keep iff bits >= thr,
+// rescale 1/(1 - thr/2^32), as `_drop_consts` :56-59) and writes each (row,
+// head, query)'s softmax statistics (the row max m and 1/l, in the kernel's
+// own units: base 2 for bf16, base e for float32) for the backward kernel
+// (composed_attn_bwd.cu).  With the online softmax the mask goes on the
+// unnormalised weights: l sums exp(S - m) over every key, the dropped
+// weights are zeroed before the second product, and the head's output is
+// multiplied by (1/l) / (1 - p) at the head's end.  In the bf16 kernel the
+// two lanes of a mma quad pair that share a Philox counter split its call.
 //
 // Design.  One block owns BQ = 64 query rows of one row r; the grid is
 // R * T/64 blocks, the query tiles of a row next to each other so that the
@@ -52,109 +66,29 @@
 // on CUDA cores, 3.35 TB/s): bf16 1.11 ms by operations (bytes 0.72 ms),
 // f32 16.4 ms by operations (bytes 1.44 ms).  This version is far from that:
 // mma.sync and not wgmma, 8 warps an SM, and the key tiles of x reloaded
-// (from L2) for every head and query tile.
+// (from L2) for every head and query tile.  The train instance adds one
+// Philox call (10 rounds of two 32-bit multiplies) per 2 x 2 block of
+// weights, shared by the two lanes that hold it (bf16), on the integer
+// pipes beside the tensor cores.
 
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "composed_attn_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int D = 128;   // composite width
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float LOG2E = 1.4426950408889634f;
-static_assert(BQ == BK, "the tile loaders copy BK rows for Q, K and V");
-
-// ---- bfloat16 kernel: tensor cores --------------------------------------
-constexpr int TC_WARPS = 4;                 // 16 query rows each
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int LDH = D + 8;    // bf16 row stride of a tile: 272 B, so the 8
-                              // rows of an ldmatrix hit distinct banks
-constexpr int TILE = BK * LDH;
-static_assert(TC_WARPS * 16 == BQ, "one warp per 16 query rows");
 
 // two stages of (K, V) tiles and two Q tiles (this head's and the next's)
 size_t tc_smem_bytes(int T) {
   return sizeof(bf16) * 6 * (size_t)TILE + sizeof(float) * (size_t)T;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row major) b (16 x 8, bf16, col major)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// BK rows x D bf16 from global (row stride D) into shared (row stride LDH),
-// 16 bytes a thread per step
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int tid) {
-  constexpr int VEC = D / 8;
-  static_assert(BK * VEC % TC_THREADS == 0, "whole steps per thread");
-#pragma unroll
-  for (int step = 0; step < BK * VEC / TC_THREADS; ++step) {
-    const int i = tid + step * TC_THREADS, r = i / VEC, c = i % VEC;
-    cp_async16(dst + r * LDH + c * 8, src + (size_t)r * D + c * 8);
-  }
-}
-
+template <bool TRAIN>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 composed_attn_bf16_kernel(const bf16* __restrict__ qh,
                           const bf16* __restrict__ x,
                           const bf16* __restrict__ vt,
                           const float* __restrict__ bias,
-                          bf16* __restrict__ out, int H, int T, float scale) {
+                          bf16* __restrict__ out, int H, int T, float scale,
+                          const uint32_t* __restrict__ seeds, uint32_t thr,
+                          float drop_scale, float2* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);   // [2][BQ][LDH], by head parity
   bf16* sK = sQ + 2 * TILE;                   // [2][BK][LDH], by stage
@@ -169,6 +103,8 @@ composed_attn_bf16_kernel(const bf16* __restrict__ qh,
   for (int i = tid; i < T; i += TC_THREADS)
     sBias[i] = bias[(size_t)r * T + i] * LOG2E;
   const float scale2 = scale * LOG2E;     // softmax in base 2
+  uint32_t seed = 0;
+  if constexpr (TRAIN) seed = seeds[r];
 
   // loads of step `it` (head it / nk, key tile it % nk) into stage it % 2
   auto load_step = [&](int it) {
@@ -259,6 +195,19 @@ composed_attn_bf16_kernel(const bf16* __restrict__ qh,
     }
     l0 = l0 * al0 + sum0;   // this lane's share; the quad sums at the end
     l1 = l1 * al1 + sum1;
+    if constexpr (TRAIN) {
+      if (thr != 0u) {   // dropout: l keeps every key, the product does not
+        const int qa = q0 + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          bool kp[4];
+          keep_frag_q(seed, h, qa, kt * BK + j * 8 + 2 * tg, thr, kp);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!kp[e]) s[j][e] = 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       o[n][0] *= al0;
@@ -291,7 +240,16 @@ composed_attn_bf16_kernel(const bf16* __restrict__ qh,
         l0 += __shfl_xor_sync(FULL, l0, off);
         l1 += __shfl_xor_sync(FULL, l1, off);
       }
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      if constexpr (TRAIN) {
+        if (tg == 0) {
+          const size_t row = ((size_t)r * H + h) * T + q0 + warp * 16 + g;
+          stats[row] = make_float2(m0, inv0);
+          stats[row + 8] = make_float2(m1, inv1);
+        }
+        inv0 *= drop_scale;
+        inv1 *= drop_scale;
+      }
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         acc[n][0] += o[n][0] * inv0;
@@ -317,58 +275,19 @@ composed_attn_bf16_kernel(const bf16* __restrict__ qh,
 }
 
 // ---- float32 kernel: CUDA cores -----------------------------------------
-constexpr int F_THREADS = 256;   // 16 x 16
-constexpr int LDF = D + 1;       // float row stride of the Q and K/V tiles
-constexpr int LDA = BK + 1;      // float row stride of the A tile
-
 size_t f32_smem_bytes(int T) {
   return sizeof(float) * ((size_t)BQ * LDF + BK * LDF + BQ * LDA + T);
 }
 
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int tid) {
-  for (int i = tid; i < BK * D; i += F_THREADS)
-    dst[(i / D) * LDF + i % D] = __ldg(src + i);
-}
-
-// s[i][j] = <q row ty + 16 i, k row tx + 16 j>
-__device__ __forceinline__ void thread_scores(const float* sQ, const float* sK,
-                                              int ty, int tx, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LDF + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = sK[(tx + 16 * j) * LDF + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// reductions over the 16 lanes that share ty (lane % 16 = tx)
-__device__ __forceinline__ float row_max16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
+template <bool TRAIN>
 __global__ void __launch_bounds__(F_THREADS)
 composed_attn_f32_kernel(const float* __restrict__ qh,
                          const float* __restrict__ x,
                          const float* __restrict__ vt,
                          const float* __restrict__ bias,
-                         float* __restrict__ out, int H, int T, float scale) {
+                         float* __restrict__ out, int H, int T, float scale,
+                         const uint32_t* __restrict__ seeds, uint32_t thr,
+                         float drop_scale, float2* __restrict__ stats) {
   extern __shared__ float fsmem[];
   float* sQ = fsmem;                 // [BQ][LDF]
   float* sKV = sQ + BQ * LDF;        // [BK][LDF]: a key tile, then a value tile
@@ -380,6 +299,8 @@ composed_attn_f32_kernel(const float* __restrict__ qh,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const float* xr = x + (size_t)r * T * D;
   for (int i = tid; i < T; i += F_THREADS) sBias[i] = bias[(size_t)r * T + i];
+  uint32_t seed = 0;
+  if constexpr (TRAIN) seed = seeds[r];
 
   float acc[4][8], o[4][8];   // sum over heads; this head's unnormalised
 #pragma unroll
@@ -421,7 +342,13 @@ composed_attn_f32_kernel(const float* __restrict__ qh,
         for (int j = 0; j < 4; ++j) {
           s[i][j] = expf(s[i][j] - mn);
           sum += s[i][j];
-          sA[(ty + 16 * i) * LDA + tx + 16 * j] = s[i][j];
+          float w = s[i][j];
+          if constexpr (TRAIN) {
+            if (thr != 0u &&
+                !keep_one(seed, h, q0 + ty + 16 * i, k0 + tx + 16 * j, thr))
+              w = 0.f;
+          }
+          sA[(ty + 16 * i) * LDA + tx + 16 * j] = w;
         }
         l[i] = l[i] * alpha + sum;   // this lane's share; summed at the end
 #pragma unroll
@@ -446,7 +373,11 @@ composed_attn_f32_kernel(const float* __restrict__ qh,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float inv = 1.f / row_sum16(l[i]);
+      float inv = 1.f / row_sum16(l[i]);
+      if constexpr (TRAIN) {
+        if (tx == 0) stats[rh * T + q0 + ty + 16 * i] = make_float2(m[i], inv);
+        inv *= drop_scale;
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(o[i][j], inv, acc[i][j]);
     }
@@ -459,6 +390,39 @@ composed_attn_f32_kernel(const float* __restrict__ qh,
       out[((size_t)r * T + q0 + ty + 16 * i) * D + tx + 16 * j] = acc[i][j];
 }
 
+template <bool TRAIN>
+int launch_forward(const void* qh, const void* x, const void* vt,
+                   const float* bias, const uint32_t* seeds, void* out,
+                   float2* stats, int R, int H, int T, int bf16_inputs,
+                   float scale, uint32_t thr, float drop_scale,
+                   cudaStream_t s) {
+  if (R <= 0 || H <= 0 || T <= 0 || T % BQ != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bf16_inputs ? tc_smem_bytes(T) : f32_smem_bytes(T);
+  const cudaError_t err =
+      bf16_inputs
+          ? cudaFuncSetAttribute(composed_attn_bf16_kernel<TRAIN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem)
+          : cudaFuncSetAttribute(composed_attn_f32_kernel<TRAIN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reset, so the error is not reported again later
+    return (int)err;
+  }
+  const dim3 grid((unsigned)R * (unsigned)(T / BQ));
+  if (bf16_inputs)
+    composed_attn_bf16_kernel<TRAIN><<<grid, TC_THREADS, smem, s>>>(
+        (const bf16*)qh, (const bf16*)x, (const bf16*)vt, bias, (bf16*)out, H,
+        T, scale, seeds, thr, drop_scale, stats);
+  else
+    composed_attn_f32_kernel<TRAIN><<<grid, F_THREADS, smem, s>>>(
+        (const float*)qh, (const float*)x, (const float*)vt, bias,
+        (float*)out, H, T, scale, seeds, thr, drop_scale, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,39 +432,30 @@ long long composed_attn_smem_bytes(int T, int bf16_inputs) {
   return (long long)(bf16_inputs ? tc_smem_bytes(T) : f32_smem_bytes(T));
 }
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
-// qh and vt (R, H, T, 128), x and out (R, T, 128), all bfloat16 when
-// bf16_inputs else float32; bias (R, T) float32; all contiguous, the bf16
-// ones 16-byte aligned.  T must be a multiple of 64.
+// Launches the inference kernel on `stream`; returns cudaGetLastError() (0 =
+// launched).  qh and vt (R, H, T, 128), x and out (R, T, 128), all bfloat16
+// when bf16_inputs else float32; bias (R, T) float32; all contiguous, the
+// bf16 ones 16-byte aligned.  T must be a multiple of 64.
 int composed_attn_forward(const void* qh, const void* x, const void* vt,
                           const float* bias, void* out, int R, int H, int T,
                           int bf16_inputs, float scale, void* stream) {
-  if (R <= 0 || H <= 0 || T <= 0 || T % BQ != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = bf16_inputs ? tc_smem_bytes(T) : f32_smem_bytes(T);
-  const cudaError_t err =
-      bf16_inputs
-          ? cudaFuncSetAttribute(composed_attn_bf16_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem)
-          : cudaFuncSetAttribute(composed_attn_f32_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // reset, so the error is not reported again later
-    return (int)err;
-  }
-  const dim3 grid((unsigned)R * (unsigned)(T / BQ));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16_inputs)
-    composed_attn_bf16_kernel<<<grid, TC_THREADS, smem, s>>>(
-        (const bf16*)qh, (const bf16*)x, (const bf16*)vt, bias, (bf16*)out, H,
-        T, scale);
-  else
-    composed_attn_f32_kernel<<<grid, F_THREADS, smem, s>>>(
-        (const float*)qh, (const float*)x, (const float*)vt, bias,
-        (float*)out, H, T, scale);
-  return (int)cudaGetLastError();
+  return launch_forward<false>(qh, x, vt, bias, nullptr, out, nullptr, R, H,
+                               T, bf16_inputs, scale, 0u, 1.f,
+                               (cudaStream_t)stream);
+}
+
+// The train instance: as composed_attn_forward, plus dropout at threshold
+// `thr` (0: none) with rescale `drop_scale`, per-row seeds (R,) uint32, and
+// the softmax statistics written to `stats` (R, H, T) x {m, 1/l} float32.
+int composed_attn_forward_train(const void* qh, const void* x, const void* vt,
+                                const float* bias, const void* seeds,
+                                void* out, void* stats, int R, int H, int T,
+                                int bf16_inputs, float scale, unsigned thr,
+                                float drop_scale, void* stream) {
+  return launch_forward<true>(qh, x, vt, bias, (const uint32_t*)seeds, out,
+                              (float2*)stats, R, H, T, bf16_inputs, scale,
+                              (uint32_t)thr, drop_scale,
+                              (cudaStream_t)stream);
 }
 
 const char* composed_attn_error_string(int code) {

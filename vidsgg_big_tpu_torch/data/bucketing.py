@@ -57,6 +57,14 @@ class BucketSpec:
         return n, t
 
 
+def iter_shuffled(dataset, seed: int = 0):
+    """Yield ``dataset[i]`` over ``np.random.default_rng(seed)``'s
+    permutation (the JAX package's order for the same seed), loading each
+    record at yield time."""
+    for i in np.random.default_rng(seed).permutation(len(dataset)):
+        yield dataset[int(i)]
+
+
 def stream_buckets(items: Iterable, key_of, batch_size: int):
     """The streaming bucket grouper: yield ``(key, rows, n_real)``.
 

@@ -4,11 +4,14 @@ Port of the JAX package's ``models/grounding.py`` (reference class ``DEBUG``,
 models/grd_model_v5.py:140-737): QANet-style encoders over the clips and the
 query words, video/query similarity fusion, a combined QANet encoder over
 every (query, clip) pair, and three per-bin conv heads; then the test-time
-decode.  Queries of one video are padded to a fixed Q and clips to a fixed
-T; clip validity rides through attention, pooling and the decode.  The
-modules keep the reference parameter names, so a reference ``state_dict``
-loads with ``strict=True``.  Inference only: the loss and the training-time
-label geometry come with grounding training.
+decode, and the training side: the FCOS-style label geometry
+(:func:`grounding_gt_labels`) and the loss (:func:`grounding_loss`).
+Queries of one video are padded to a fixed Q and clips to a fixed T; clip
+validity rides through attention, pooling, the decode and every loss
+denominator.  The modules keep the reference parameter names, so a
+reference ``state_dict`` loads with ``strict=True``.  In train mode every
+dropout draws from the ``generator`` handed to the forward, so a step's
+randomness is a function of that generator alone.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import chunked_attention, composed_qkvo
+from ..ops.attention import (attn_chunked_stored, chunked_attention,
+                             composed_qkvo, dropout)
 from ..ops.composed_attn import fused_composed_attention
-from ..ops.temporal import tiou
+from ..ops.temporal import tiou, tiou_left_right
 from .layers import LN_EPS, MultiHeadAttention, _linear, sine_pos_embedding
 
 HEADS = 8        # QANet attention heads (reference grd_model_v5.py:103)
@@ -37,6 +41,9 @@ class GroundingConfig:
     num_pred_cats: int = 51
     num_enti_cats: int = 81
     dropout: float = 0.1
+    loss_cls: float = 1.0
+    loss_ctn: float = 1.0
+    loss_reg: float = 1.0
     # compute dtype of the conv/attention stacks; params stay float32,
     # layernorms and softmaxes compute in float32
     compute_dtype: str = "float32"
@@ -48,11 +55,15 @@ class GroundingConfig:
     def from_dict(cls, d: dict):
         """Build from a reference-style ``model_config`` dict.  The JAX
         package's ``fused_interpret`` (Pallas interpret mode) is accepted and
-        ignored; the loss factors wait for grounding training."""
+        ignored."""
+        lf = d.get("loss_factor", {})
         return cls(dim_feat=d["dim_feat"], dim_clsme=d["dim_clsme"],
                    dim_hidden=d["dim_hidden"], num_bins=d["num_bins"],
                    num_pred_cats=d.get("num_pred_cats", 51),
                    num_enti_cats=d.get("num_enti_cats", 81),
+                   loss_cls=lf.get("classification", 1.0),
+                   loss_ctn=lf.get("centerness", 1.0),
+                   loss_reg=lf.get("regression", 1.0),
                    compute_dtype=d.get("compute_dtype", "float32"),
                    attn_dropout=d.get("attn_dropout", 0.1),
                    attn_bytes_budget=d.get("attn_bytes_budget", 1 << 30),
@@ -65,9 +76,9 @@ def attention_lowering(b: int, t: int, d: int, budget: int,
     ``models/grounding.py:299-331`` of the JAX package: ``("direct", b)``
     while the (b, 8, t, t) float32 logits fit ``budget``; past it the batch
     halves into chunks and, when the halving got below b, ``("composed",
-    chunk)`` for 128-aligned t and d (the kernel on the card) or
-    ``("chunked", chunk)``.  ``composed=False`` (train mode, or the fused
-    path switched off) never picks the composed path."""
+    chunk)`` for 128-aligned t and d (the kernels on the card) or
+    ``("chunked", chunk)``.  ``composed=False`` (the fused path switched
+    off) never picks the composed path."""
     chunk = b
     while chunk * HEADS * t * t * 4 > budget and chunk % 2 == 0:
         chunk //= 2
@@ -129,13 +140,15 @@ class QANetEncoderLayer(nn.Module):
 
     Padded clips are re-zeroed after every sublayer, so valid clips see a
     fixed zero boundary and outputs do not depend on the T bucket.  The
-    attention picks its lowering with :func:`attention_lowering`: direct at
-    small shapes; past ``attn_bytes_budget`` of logits, in eval mode with
-    ``fused_attention`` (or ``flash_attention``, the JAX package's stock
-    flash option, which computes the same function) at 128-aligned shapes,
-    the composed attention (the CUDA kernel on the card, its plain version
-    on the CPU), else the chunked plain path.  Train mode uses the direct or
-    chunked path with dropout.
+    attention picks its lowering with :func:`attention_lowering`, as the JAX
+    layer's ``use_fused`` / ``use_flash`` (models/grounding.py:299-331):
+    direct at small shapes; past ``attn_bytes_budget`` of logits at
+    128-aligned shapes, the composed attention (the CUDA kernels on the
+    card, their plain versions on the CPU) in train and eval mode with
+    ``fused_attention``, and with ``flash_attention`` (the JAX package's
+    stock flash option, the same function, deterministic only) when no
+    attention dropout is drawn; else the chunked stored-softmax path.
+    Train-mode dropouts draw from the forward's generator.
     """
 
     def __init__(self, d_model: int, num_conv: int, kernel_size: int,
@@ -146,7 +159,10 @@ class QANetEncoderLayer(nn.Module):
         super().__init__()
         self.dropout, self.attn_dropout = dropout, attn_dropout
         self.attn_bytes_budget = attn_bytes_budget
+        # fused_attention takes the composed path in train and eval mode;
+        # flash_attention alone only where no attention dropout is drawn
         self.composed = fused_attention or flash_attention
+        self.flash_only = flash_attention and not fused_attention
         self.compute_dtype = getattr(torch, compute_dtype)
         self.convs = nn.ModuleList(
             DepthwiseSeparableConv(d_model, d_model, kernel_size)
@@ -160,11 +176,11 @@ class QANetEncoderLayer(nn.Module):
         self.mh_attn = MultiHeadAttention(d_model, HEADS, attn_dropout)
         self.fc = nn.Linear(d_model, d_model)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         cdt = self.compute_dtype
         x = x.to(cdt)
         t, d = x.shape[1], x.shape[2]
-        drop = lambda o, p: F.dropout(o, p, self.training)
+        drop = lambda o, p: dropout(o, p, generator, self.training)
         ln = lambda norm, o: norm(o.float()).to(cdt)
         z = ((lambda o: o.masked_fill(~mask[..., None], 0.0))
              if mask is not None else (lambda o: o))
@@ -179,7 +195,7 @@ class QANetEncoderLayer(nn.Module):
                 out = drop(out, self.dropout * (i + 1) / n)
             res = out
             out = z(ln(norm, out))
-        out = z(self._attention(out, mask) + res)
+        out = z(self._attention(out, mask, generator) + res)
         out = drop(out, self.dropout)
         res = out
         out = z(ln(self.norme, out))
@@ -199,24 +215,28 @@ class QANetEncoderLayer(nn.Module):
                 a.out_proj.weight.t().reshape(HEADS, hd, d),
                 b[2 * d:].reshape(HEADS, hd), a.out_proj.bias)
 
-    def _attention(self, x, mask):
+    def _attention(self, x, mask, generator=None):
         b, t, d = x.shape
         cdt = x.dtype
         a = self.mh_attn
         hd = d // HEADS
+        p = self.attn_dropout if self.training else 0.0
         way, chunk = attention_lowering(
             b, t, d, self.attn_bytes_budget,
-            composed=self.composed and not self.training)
+            composed=self.composed and not (self.flash_only and p > 0.0))
         if way == "composed":
             comp = composed_qkvo(*self._head_weights())
-            return fused_composed_attention(x, mask, *comp, hd=hd)
+            return fused_composed_attention(x, mask, *comp, hd=hd,
+                                            dropout=p, generator=generator)
         if mask is None:
             mask = torch.ones((b, t), dtype=torch.bool, device=x.device)
         w, bias = a.in_proj_weight.to(cdt), a.in_proj_bias.to(cdt)
         q, k, v = (F.linear(x, w[i * d:(i + 1) * d], bias[i * d:(i + 1) * d]
                             ).reshape(b, t, HEADS, hd) for i in range(3))
-        o = chunked_attention(q, k, v, mask, chunk=chunk, dropout=(
-            self.attn_dropout if self.training else 0.0))
+        attend = attn_chunked_stored if way == "chunked" else \
+            chunked_attention
+        o = attend(q, k, v, mask, chunk=chunk, dropout=p,
+                   generator=generator)
         return _linear(a.out_proj, o.reshape(b, t, d))
 
 
@@ -253,7 +273,8 @@ class GroundingModel(nn.Module):
       query_mask:  (B, Q) validity (the forward does not read it; the
                    decode does).
     Returns regrs (B,Q,T,2,K), conf_logits (B,Q,T,K), cls_logits (B,Q,T,K),
-    float32.  ``generator`` seeds the initial weights.
+    float32.  ``generator`` seeds the initial weights; the forward's own
+    ``generator`` feeds the train-mode dropouts.
     """
 
     def __init__(self, cfg: GroundingConfig,
@@ -309,7 +330,7 @@ class GroundingModel(nn.Module):
             table.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, video_feats, clip_mask, query_cats, temporal,
-                query_mask=None):
+                query_mask=None, generator=None):
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         b, t, _ = video_feats.shape
@@ -324,9 +345,9 @@ class GroundingModel(nn.Module):
         temp = _linear(self.temp_fc, temporal.to(cdt))             # (B,Q,H)
         query = words + temp[:, :, None, :]
 
-        video = self.video_encoder(video, mask=clip_mask)
-        query = self.query_encoder(query.reshape(b * q, 3, hid)).reshape(
-            b, q, 3, hid)
+        video = self.video_encoder(video, mask=clip_mask, generator=generator)
+        query = self.query_encoder(query.reshape(b * q, 3, hid),
+                                   generator=generator).reshape(b, q, 3, hid)
 
         # similarity fusion (reference grd_model_v5.py:331-368)
         vproj = _linear(self.proj2sim, video)                     # (B,T,H)
@@ -347,12 +368,143 @@ class GroundingModel(nn.Module):
         combined = _linear(self.vq_fc, combined)
         flat_mask = clip_mask.repeat_interleave(q, dim=0)        # (BQ, T)
         flat = self.combined_encoder(combined.reshape(b * q, t, hid),
-                                     mask=flat_mask)
+                                     mask=flat_mask, generator=generator)
         k = cfg.num_bins
         regrs = self.regr_head(flat, mask=flat_mask).reshape(b, q, t, 2, k)
         conf = self.conf_head(flat, mask=flat_mask).reshape(b, q, t, k)
         cls = self.cls_head(flat, mask=flat_mask).reshape(b, q, t, k)
         return regrs, conf, cls
+
+
+# ---------------------------------------------------------------------------
+# ground-truth label geometry and training loss (reference
+# grd_model_v5.py:224-250, 375-527), batched over videos
+# ---------------------------------------------------------------------------
+
+def _bin_edges(num_bins: int, device=None):
+    """``jnp.linspace(0, 1, num_bins + 1)`` in float32, bit for bit (i times
+    the float32 step, the end point exact)."""
+    edges = torch.arange(num_bins + 1, dtype=torch.float32, device=device) \
+        * torch.tensor(1.0 / num_bins, dtype=torch.float32, device=device)
+    edges[-1] = 1.0
+    return edges
+
+
+def grounding_gt_labels(target, n_clips, t: int, num_bins: int):
+    """FCOS-style labels for normalized target spans.
+
+    Args:
+      target: (B, Q, 2) normalized [start, end] in [0, 1].
+      n_clips: (B,) true clip counts.
+      t: the clip bucket.
+
+    Returns (gt_regrs (B,Q,T,2), gt_ctness (B,Q,T), gt_scores (B,Q,T),
+    bin_ids (B,Q) int64); positions >= n_clips are all zero.
+    """
+    dev = target.device
+    denom = torch.clamp(n_clips - 1, min=1).to(torch.float32)
+    steps = torch.arange(t, device=dev)
+    clip_range = steps.to(torch.float32)[None] / denom[:, None]    # (B, T)
+    clip_valid = steps[None] < n_clips[:, None]
+    bins = _bin_edges(num_bins, dev)
+    target_ct = target.mean(-1)                                   # (B, Q)
+    offset = target_ct[..., None] - bins
+    bin_ids = torch.clamp((offset > 0).sum(-1) - 1, 0, num_bins - 1)
+
+    left = clip_range[:, None, :] - target[..., 0, None]          # (B, Q, T)
+    right = target[..., 1, None] - clip_range[:, None, :]
+    inside = (left > 0) & (right > 0) & clip_valid[:, None, :]
+    ratio = torch.where(inside, torch.minimum(left, right) / torch.clamp(
+        torch.maximum(left, right), min=1e-12), 0.0)
+    gt_ctness = torch.sqrt(torch.clamp(ratio, min=0.0))
+    gt_scores = inside.to(torch.float32)
+    return torch.stack([left, right], -1), gt_ctness, gt_scores, bin_ids
+
+
+def _bce_logits(logits, target):
+    return torch.clamp(logits, min=0) - logits * target + \
+        torch.log1p(torch.exp(-logits.abs()))
+
+
+def grounding_loss(outputs, neg_outputs, labels, group_rep, is_rep,
+                   query_mask, clip_mask, cfg: GroundingConfig):
+    """Loss over one padded batch (``grounding_loss`` of the JAX package).
+
+    Args:
+      outputs: (regrs, conf, cls) of the positive query slots, one slot per
+        (possibly duplicated) GT predicate; duplicates carry the same
+        network outputs as their group representative.
+      neg_outputs: the same for the sampled negative-predicate queries
+        (read on representative slots only).
+      labels: (gt_regrs (B,Q,T,2), gt_ctness, gt_scores, bin_ids) per slot.
+      group_rep: (B, Q) index of each slot's dedup-group representative.
+      is_rep: (B, Q) bool, True on group representatives.
+      query_mask: (B, Q); clip_mask: (B, T).
+
+    Returns (total, {pos_cls, neg_cls, pos_ct, neg_ct, regr}).
+    """
+    regrs, conf, cls = outputs                 # (B,Q,T,2,K), (B,Q,T,K)
+    _, n_conf, n_cls = neg_outputs
+    gt_regrs, gt_ctness, gt_scores, bin_ids = labels
+    k = cfg.num_bins
+    b, qn, t = conf.shape[:3]
+    group_rep, bin_ids = group_rep.long(), bin_ids.long()
+
+    def take_rep(x):
+        idx = group_rep.reshape(b, qn, *([1] * (x.dim() - 2)))
+        return torch.gather(x, 1, idx.expand(b, qn, *x.shape[2:]))
+
+    def take_bin(x):
+        idx = bin_ids.reshape(b, qn, *([1] * (x.dim() - 2)))
+        return torch.gather(x, -1, idx.expand(*x.shape[:-1], 1))[..., 0]
+
+    # positives: slot q reads its representative's outputs at its bin
+    pos_conf = take_bin(take_rep(conf))                          # (B, Q, T)
+    pos_cls = take_bin(take_rep(cls))
+    pos_regr = take_bin(take_rep(regrs))                         # (B,Q,T,2)
+
+    valid_qc = query_mask[:, :, None] & clip_mask[:, None, :]    # (B, Q, T)
+    wq = valid_qc.to(torch.float32)
+    n_pos = torch.clamp(wq.sum(), min=1.0)
+    pos_cls_loss = (_bce_logits(pos_cls, gt_scores) * wq).sum() / n_pos
+
+    ct_mask = (gt_ctness > 0) & valid_qc
+    wct = ct_mask.to(torch.float32)
+    n_ct = torch.clamp(wct.sum(), min=1.0)
+    pos_ct_loss = (_bce_logits(pos_conf, gt_ctness) * wct).sum() / n_ct
+    reg_iou = tiou_left_right(pos_regr, torch.where(ct_mask[..., None],
+                                                    gt_regrs, 1.0))
+    reg_iou = torch.where(ct_mask, reg_iou, 1.0)
+    regr_loss = (-torch.log(torch.clamp(reg_iou, min=0.0) + 1e-6) * wct
+                 ).sum() / n_ct
+
+    # negatives: (a) representative slots, bins outside the group's
+    # positive-bin set (the OR over the group's members, kept on the
+    # representative)
+    bins_onehot = F.one_hot(bin_ids, k).bool() & query_mask[..., None]
+    group_bins = torch.zeros((b, qn, k), dtype=torch.int32,
+                             device=conf.device).scatter_reduce(
+        1, group_rep[..., None].expand(b, qn, k), bins_onehot.to(torch.int32),
+        reduce="amax").bool()
+    neg_bins = ~group_bins & is_rep[..., None] & query_mask[..., None]
+    w_nb = (neg_bins[:, :, None, :] & valid_qc[..., None]).to(torch.float32)
+    # (b) negative-predicate queries (representative slots), all bins
+    w_nq = (is_rep[:, :, None, None] & valid_qc[..., None]).to(
+        torch.float32) * torch.ones((1, 1, 1, k), device=conf.device)
+    n_neg = torch.clamp(w_nb.sum() + w_nq.sum(), min=1.0)
+    neg_cls_loss = ((_bce_logits(cls, 0.0) * w_nb).sum() +
+                    (_bce_logits(n_cls, 0.0) * w_nq).sum()) / n_neg
+    neg_ct_loss = ((_bce_logits(conf, 0.0) * w_nb).sum() +
+                   (_bce_logits(n_conf, 0.0) * w_nq).sum()) / n_neg
+
+    loss_dict = {
+        "pos_cls": cfg.loss_cls * pos_cls_loss,
+        "neg_cls": cfg.loss_cls * neg_cls_loss,
+        "pos_ct": cfg.loss_ctn * pos_ct_loss,
+        "neg_ct": cfg.loss_ctn * neg_ct_loss,
+        "regr": cfg.loss_reg * regr_loss,
+    }
+    return sum(loss_dict.values()), loss_dict
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,24 @@
 """Plain lowerings of the grounding QANet's masked multi-head attention.
 
-Port of the JAX package's ``ops/attention.py``, forward only:
+Port of the JAX package's ``ops/attention.py``:
 
 * :func:`composed_qkvo` folds the per-head projections into d-width
   composites (W_q W_k^T, W_v W_o), the operands of the composed attention
   (``ops/composed_attn.py``);
 * :func:`chunked_attention` is exact masked softmax attention over the batch
-  axis in chunks of rows, the counterpart of ``attn_chunked_stored`` (its
-  stored-softmax VJP belongs to grounding training, a later slice).  With
-  one chunk it is the layer's direct path.
+  axis in chunks of rows; with one chunk it is the layer's direct path
+  (train mode included: its dropout draws from an explicit generator);
+* :func:`attn_chunked_stored` is the training path of the chunked lowering
+  (``attn_chunked_stored`` of the JAX package): each chunk's softmax output
+  is stored in the value dtype with its bit-packed dropout keep-mask, so the
+  backward recomputes nothing.  Its keep-mask is drawn at the 16-bit
+  realized rate :func:`drop_rate_eff`, as the JAX path's.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 
 
 def composed_qkvo(wq, bq, wk, wv, wo, bv, bo):
@@ -33,7 +36,37 @@ def composed_qkvo(wq, bq, wk, wv, wo, bv, bo):
     return wqk, wb, wvo, cb
 
 
-def chunked_attention(q, k, v, mask, *, chunk: int, dropout: float = 0.0):
+def device_generator(generator, device):
+    """A generator on ``device`` whose stream is a function of
+    ``generator``'s: the CPU generator itself, or a fresh device generator
+    seeded with one draw from it.  ``None`` stays ``None`` (the device's
+    default generator)."""
+    device = torch.device(device)
+    if generator is None or generator.device.type == device.type:
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout_mask(shape, p: float, generator, device):
+    """Bernoulli(1 - p) keep-mask (flax ``nn.Dropout``'s), drawn from
+    ``generator`` (see :func:`device_generator`)."""
+    g = device_generator(generator, device)
+    return torch.rand(shape, generator=g, device=device) >= p
+
+
+def dropout(x, p: float, generator=None, training: bool = True):
+    """flax ``nn.Dropout``: keep with probability 1 - p and rescale kept
+    values by 1 / (1 - p) in x's dtype; the identity in eval mode or at
+    p = 0.  Unlike ``F.dropout`` the mask comes from ``generator``."""
+    if not training or p <= 0.0:
+        return x
+    keep = dropout_mask(x.shape, p, generator, x.device)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def chunked_attention(q, k, v, mask, *, chunk: int, dropout: float = 0.0,
+                      generator=None):
     """Exact masked attention, (B, T, h, hd) -> (B, T, h, hd).
 
     ``mask`` (B, T) marks valid keys.  Logits are float32 (after the
@@ -41,10 +74,10 @@ def chunked_attention(q, k, v, mask, *, chunk: int, dropout: float = 0.0):
     float32 minimum and are zeroed after the softmax, so a row with no valid
     key attends to nothing.  The batch axis goes ``chunk`` rows at a time,
     bounding the (chunk, h, T, T) logits; ``dropout`` > 0 drops attention
-    weights (train mode).
+    weights with a mask from ``generator`` (train mode's direct path).
     """
     b, t, h, hd = q.shape
-    out = torch.empty_like(q)
+    outs = []
     for s in range(0, b, chunk):
         sl = slice(s, s + chunk)
         logits = torch.einsum("bqhd,bkhd->bhqk", q[sl], k[sl]).float() / \
@@ -52,6 +85,115 @@ def chunked_attention(q, k, v, mask, *, chunk: int, dropout: float = 0.0):
         valid = mask[sl, None, None, :]
         logits = logits.masked_fill(~valid, torch.finfo(torch.float32).min)
         att = torch.softmax(logits, dim=-1).masked_fill(~valid, 0.0)
-        att = F.dropout(att, dropout, training=dropout > 0.0)
-        out[sl] = torch.einsum("bhqk,bkhd->bqhd", att.to(v.dtype), v[sl])
-    return out
+        if dropout > 0.0:
+            keep = dropout_mask(att.shape, dropout, generator, att.device)
+            att = torch.where(keep, att / (1.0 - dropout), 0.0)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", att.to(v.dtype), v[sl]))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+# --------------------------------------------------------------------------
+# chunked attention with a stored softmax (training path)
+# --------------------------------------------------------------------------
+
+def drop_rate_eff(dropout: float) -> float:
+    """The dropout rate the 16-bit keep-mask realizes: ``round(dropout *
+    2**16) / 2**16`` (0.1 becomes 0.100006...); threshold and rescale both
+    use it, so the dropout stays unbiased at the quantized rate."""
+    return round(dropout * 65536.0) / 65536.0
+
+
+def keep_mask16(shape, dropout: float, generator, device):
+    """Bernoulli(1 - drop_rate_eff(dropout)) keep-mask from 16-bit draws of
+    ``generator`` (the JAX path draws 16-bit halves of the TPU's hardware
+    RNG words at the same threshold)."""
+    g = device_generator(generator, device)
+    thr = round(dropout * 65536.0)
+    bits = torch.randint(0, 1 << 16, shape, generator=g, device=device,
+                         dtype=torch.int32)
+    return bits >= thr
+
+
+_BIT_WEIGHTS = [1 << i for i in range(8)]
+
+
+def _pack_bits(keep):
+    """(..., k) bool -> (..., ceil(k/8)) uint8, bit i of byte j = element
+    8j + i (an eighth of a byte per element)."""
+    *lead, k = keep.shape
+    if k % 8:
+        keep = torch.nn.functional.pad(keep, (0, 8 - k % 8))
+        k += 8 - k % 8
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=keep.device)
+    g = keep.reshape(*lead, k // 8, 8).to(torch.uint8)
+    return (g * w).sum(-1, dtype=torch.uint8)
+
+
+def _unpack_bits(packed, k: int):
+    """Inverse of :func:`_pack_bits`."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.to(torch.bool).reshape(*packed.shape[:-1], -1)[..., :k]
+
+
+class _BlockStored(torch.autograd.Function):
+    """One chunk of :func:`attn_chunked_stored` (``_blk_stored`` of the JAX
+    package): the forward stores the pre-dropout softmax in the value dtype
+    and the bit-packed keep-mask; the backward recomputes nothing."""
+
+    @staticmethod
+    def forward(ctx, qc, kc, vc, mc, dropout, generator):
+        hd = qc.shape[-1]
+        lg = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() / math.sqrt(hd)
+        valid = mc[:, None, None, :]
+        lg = lg.masked_fill(~valid, torch.finfo(torch.float32).min)
+        at = torch.softmax(lg, dim=-1).masked_fill(~valid, 0.0).to(vc.dtype)
+        at_d, packed = at, None
+        if dropout > 0.0:
+            p = drop_rate_eff(dropout)
+            keep = keep_mask16(at.shape, dropout, generator, at.device)
+            at_d = torch.where(keep, at / (1.0 - p), torch.zeros_like(at))
+            packed = _pack_bits(keep)
+        ctx.save_for_backward(qc, kc, vc, mc, at, packed)
+        ctx.dropout = dropout
+        return torch.einsum("bhqk,bkhd->bqhd", at_d, vc)
+
+    @staticmethod
+    def backward(ctx, do):
+        qc, kc, vc, mc, at, packed = ctx.saved_tensors
+        hd = qc.shape[-1]
+        zero = torch.zeros((), dtype=at.dtype, device=at.device)
+        if ctx.dropout > 0.0:
+            p = drop_rate_eff(ctx.dropout)
+            keep = _unpack_bits(packed, at.shape[-1])
+            at_d = torch.where(keep, at / (1.0 - p), zero)
+        else:
+            at_d = at
+        do = do.to(vc.dtype)
+        dv = torch.einsum("bhqk,bqhd->bkhd", at_d, do)
+        dat = torch.einsum("bqhd,bkhd->bhqk", do, vc)
+        if ctx.dropout > 0.0:
+            dat = torch.where(keep, dat / (1.0 - p), zero)
+        a32, g = at.float(), dat.float()
+        dlg = a32 * (g - (g * a32).sum(-1, keepdim=True)) / math.sqrt(hd)
+        dlg = dlg.masked_fill(~mc[:, None, None, :], 0.0).to(qc.dtype)
+        dq = torch.einsum("bhqk,bkhd->bqhd", dlg, kc)
+        dk = torch.einsum("bhqk,bqhd->bkhd", dlg, qc)
+        return dq, dk, dv, None, None, None
+
+
+def attn_chunked_stored(q, k, v, mask, *, chunk: int, dropout: float = 0.0,
+                        generator=None):
+    """Chunked exact attention with a stored softmax, (B, T, h, hd) ->
+    (B, T, h, hd): the same function as :func:`chunked_attention`, with a
+    recompute-free backward; the keep-mask of ``dropout`` > 0 is drawn from
+    ``generator`` at :func:`drop_rate_eff`, one draw per chunk in order."""
+    b = q.shape[0]
+    if b % chunk:
+        raise ValueError(f"attn_chunked_stored: chunk {chunk} does not "
+                         f"divide the batch {b}")
+    outs = [_BlockStored.apply(q[s:s + chunk], k[s:s + chunk],
+                               v[s:s + chunk], mask[s:s + chunk],
+                               float(dropout), generator)
+            for s in range(0, b, chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 into a shared library loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  Libraries go to ``build/vidsgg_big_tpu_torch/`` at the root
-of the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing here runs at
+of the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing here runs at
 import time: the CPU-only test host has no ``nvcc``.
 """
 from __future__ import annotations
@@ -24,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every kernel source of the port, by library name
 KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu",
-           "composed_attn": CSRC_DIR / "composed_attn.cu"}
+           "composed_attn": CSRC_DIR / "composed_attn.cu",
+           "composed_attn_bwd": CSRC_DIR / "composed_attn_bwd.cu"}
 
 _loaded: dict = {}
 
@@ -41,7 +43,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = KERNELS[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers +
+                            " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -48,3 +48,12 @@ def tiou(duras1, duras2, broadcast: bool = True):
     t = (torch.minimum(a1, b1) - torch.maximum(a0, b0)) / (
         torch.maximum(a1, b1) - torch.minimum(a0, b0))
     return torch.where(mask, t, torch.zeros_like(t))
+
+
+def tiou_left_right(lr1, lr2):
+    """IoU of (left, right) FCOS-style offsets around a shared anchor point
+    (..., 2) (reference models/grd_model_v5.py:10-14)."""
+    return (torch.minimum(lr1[..., 1], lr2[..., 1])
+            + torch.minimum(lr1[..., 0], lr2[..., 0])) / (
+        torch.maximum(lr1[..., 1], lr2[..., 1])
+        + torch.maximum(lr1[..., 0], lr2[..., 0]))

@@ -1,7 +1,9 @@
-"""Where the device time of inference goes on the card.
+"""Where the device time of inference (and grounding training) goes on the
+card.
 
     python -m vidsgg_big_tpu_torch.tools.profile_infer \\
-        [--model bigc|grounding] [--compute_dtype bfloat16] [--out k.json]
+        [--model bigc|grounding|grounding_train] [--compute_dtype bfloat16] \\
+        [--out k.json]
 
 ``--model bigc`` (default) builds the exp2 model with random weights (as
 the eval entry point does), packs one full-size synthetic batch of 8 (N=50 x
@@ -9,7 +11,11 @@ T=256, 2048+832 features) on the card, and times forward + triplet
 construction.  ``--model grounding`` builds the grounding_weights model
 (dim_hidden 128, 10 bins) and times forward + decode on one stage-B batch at
 bench.py's geometry (B=4 videos x Q=256 queries x T=512 clips, 299 valid).
-Either runs 10 steps under ``torch.profiler`` and prints one JSON line:
+``--model grounding_train`` builds the same model and times the train step
+(loss, backward, clip, Adam; dropout 0.1) at bench.py's train geometry: 8
+full-size synthetic videos x 64 predicate slots x T=512 (R=1024 rows in the
+combined encoder).  Each runs 10 steps under ``torch.profiler`` and prints
+one JSON line:
 milliseconds per batch (CUDA events), the device's busy share of that
 window (kernel time over window time) and the kernels with the most device
 time, each with its share and launches per batch.  The full kernel table
@@ -24,11 +30,14 @@ import os
 import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches
-from ..data.synthetic import num_clips
+from ..data.synthetic import clip_features, make_vidor_video, num_clips
 from ..models.big_c import BigCConfig
 from ..models.grounding import GroundingConfig
-from ..train.grounding_steps import build_grounding_infer_step
+from ..train.grounding_steps import (build_grounding_infer_step,
+                                     build_grounding_train_step)
+from ..train.loop import step_generator
 from ..train.steps import build_infer_step
+from ..train.train_state import TrainState
 from ..utils.config import parse_config_py
 from ..utils.device import card_name_and_power, resolve_device, strict_float32
 from . import eval_vidor, eval_vidvrd
@@ -38,6 +47,7 @@ CFG_PATH = "experiments/exp2/config_.py"
 GRD_CFG_PATH = "experiments/grounding_weights/config_.py"
 BATCH, ITERS, TOP = 8, 10, 12
 G_B, G_Q, G_T = 4, 256, 512        # bench.py's grounding geometry
+TR_B, TR_P = 8, 64                 # bench.py's grounding train geometry
 
 
 def _bigc_step(compute_dtype, device):
@@ -83,11 +93,34 @@ def _grounding_step(compute_dtype, device):
     return (lambda: infer(*args)), G_B
 
 
+def _grounding_train_step(compute_dtype, device):
+    from . import train_vidor
+    cfgs = parse_config_py(GRD_CFG_PATH)
+    tc = cfgs["train_config"]
+    cfg = GroundingConfig.from_dict(dict(cfgs["model_config"],
+                                         compute_dtype=compute_dtype))
+    model = eval_vidor.build_grounding_model(cfg).to(device)
+    state = TrainState(model, tc["initial_lr"], tc["lr_decay"], [40, 60])
+    step = build_grounding_train_step(model, state)
+    rows = []
+    for i in range(TR_B):
+        _, gt = make_vidor_video(i, feat_dim=4,
+                                 **eval_vidor.FULL_SIZE_RECIPE)
+        rows.append((clip_features(i, gt.video_len, cfg.dim_feat), gt))
+    batch = train_vidor._to_device(train_vidor.make_batch(
+        rows, G_T, TR_B, cfg.dim_feat, TR_P, getattr(torch, compute_dtype)),
+        device)
+    it = iter(range(1 << 30))
+    return (lambda: step(*batch, generator=step_generator(1, next(it)))), \
+        TR_B
+
+
 def profile(compute_dtype: str, model: str = "bigc"):
     """(summary, [(device ms, launches, kernel name)]) over ITERS batches."""
     device = resolve_device("cuda")
     strict_float32()
-    step, batch = (_grounding_step if model == "grounding" else _bigc_step)(
+    step, batch = {"bigc": _bigc_step, "grounding": _grounding_step,
+                   "grounding_train": _grounding_train_step}[model](
         compute_dtype, device)
     for _ in range(3):
         step()
@@ -127,7 +160,7 @@ def profile(compute_dtype: str, model: str = "bigc"):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="bigc",
-                        choices=("bigc", "grounding"))
+                        choices=("bigc", "grounding", "grounding_train"))
     parser.add_argument("--compute_dtype", default="float32",
                         choices=("float32", "bfloat16"))
     parser.add_argument("--out", default=None,

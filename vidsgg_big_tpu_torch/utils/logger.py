@@ -1,9 +1,16 @@
-"""Logging helper (same contract as the reference's ``create_logger``:
-file + stream handlers, reference utils/utils_func.py:209-221)."""
+"""Logging and metric journaling.
+
+``create_logger`` has the reference's contract (file + stream handlers,
+reference utils/utils_func.py:209-221).  ``MetricWriter`` is the JAX
+package's TensorBoard-free journal: an append-only ``metrics.jsonl``, one
+JSON object per scalar event, values at full float precision.
+"""
 from __future__ import annotations
 
+import json
 import logging
 import os
+import time
 
 
 def create_logger(filename: str = "train.log", filemode: str = "a",
@@ -21,3 +28,21 @@ def create_logger(filename: str = "train.log", filemode: str = "a",
     logger.addHandler(sh)
     logger.propagate = False
     return logger
+
+
+class MetricWriter:
+    def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, filename)
+        self._f = open(self.path, "a")
+
+    def add_scalar(self, tag: str, value, step: int):
+        self._f.write(json.dumps(
+            {"tag": tag, "value": float(value), "step": int(step),
+             "ts": time.time()}) + "\n")
+
+    def flush(self):
+        self._f.flush()
+
+    def close(self):
+        self._f.close()

@@ -17,8 +17,11 @@ Phases; any failure exits non-zero and prints no result line:
      0.1) and the backward at T in {128, 512} x R in {4, 64, 1024} and
      (R=64, T=1024), float32 and bfloat16, masked keys and a fully masked
      row; the dropout keep-mask read out of the kernel exactly and its
-     realized rate; timed at R=1024, T=512 beside PyTorch's SDPA (forward;
-     forward + backward minus forward);
+     realized rate; the backward called twice on the same inputs gives the
+     same bits; timed at R=1024, T=512 beside PyTorch's SDPA (forward;
+     forward + backward minus forward, at dropout 0 and 0.1); the
+     backward kernels' registers and spills (ptxas) and their tensor-core
+     instructions (cuobjdump: wgmma in bf16, TF32 mma in f32);
   3. the main paths at full width, each with every launch count set to 0
      just before it and read just after:
      a. BIG-C v10 inference at the VidVRD exp2 geometry (N=50 tracklets x
@@ -75,11 +78,12 @@ MIN_STAGE_B_Q = 256
 G_B, G_Q, G_T = 4, 256, 512
 Q, DH, DE, DIM_ENTI = 192, 256, 512, 512      # exp2 decoder widths
 OUT_DIR = os.path.join("build", "chip_smoke")   # gitignored
-# H100 SXM peaks (NVIDIA data sheet, dense): memory rate and float32 on
-# CUDA cores; the role-attention kernel works in float32
+# H100 SXM peaks (NVIDIA data sheet, dense): memory rate, float32 on CUDA
+# cores, TF32 and bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
-PEAK_BF16_FLOP_S = 989e12          # tensor cores, dense
+PEAK_TF32_FLOP_S = 495e12
+PEAK_BF16_FLOP_S = 989e12
 # role attention, kernel vs plain: sums run in another order
 ATT_TOL = dict(rtol=1e-5, atol=1e-6)
 VAL_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -131,6 +135,20 @@ def cuda_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def f32_ops_seconds(flop):
+    """The least time float32 products of ``flop`` FLOP can take on the
+    card: CUDA-core FMA, or 3xTF32 on the tensor cores (three TF32 products
+    per product, float32's precision), whichever is less.  Every float32
+    bound of the kernels' line uses it; earlier runs printed CUDA-core FMA
+    alone (``flop / PEAK_F32_FLOP_S``), which the f32 rows print beside."""
+    return min(flop / PEAK_F32_FLOP_S, 3 * flop / PEAK_TF32_FLOP_S)
+
+
+def ops_seconds(flop, dtype):
+    return flop / PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else \
+        f32_ops_seconds(flop)
+
+
 def role_attn_inputs(b, n, seed):
     rng = np.random.default_rng(seed)
     mask = rng.uniform(size=(b, n)) > 0.2
@@ -146,14 +164,14 @@ def role_attn_inputs(b, n, seed):
 def role_attn_bound(p, e, enco, mask):
     """(bound ms, what bounds it) for one call on these inputs: each input
     read once as the kernel takes it (float32, mask int32), each output
-    written once; matmul FLOPs at the float32 peak."""
+    written once; matmul FLOPs at the float32 peak (f32_ops_seconds)."""
     from vidsgg_big_tpu_torch.ops.role_attn import role_attention_flops
     b, _, q, dh = p.shape
     n, de = e.shape[2], enco.shape[2]
     nbytes = 4 * (p.numel() + e.numel() + enco.numel() + mask.numel()
                   + b * 2 * q * n + b * 2 * q * de)
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = role_attention_flops(b, q, n, dh, de) / PEAK_F32_FLOP_S
+    t_ops = f32_ops_seconds(role_attention_flops(b, q, n, dh, de))
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
 
@@ -242,18 +260,31 @@ def composed_inputs(r, t, dtype, seed):
 
 
 def composed_bound(qh, x, vt, bias):
-    """(bound ms, what bounds it) for one call on these inputs: qh, x, vt
-    and bias read once, out written once; 4 T^2 d FLOP per row and head at
-    the peak of the inputs' type (bf16 tensor cores, f32 CUDA cores)."""
+    """(bound ms, what bounds it) for one forward call on these inputs,
+    with or without dropout: qh, x, vt and bias read once, out written once;
+    4 T^2 d FLOP per row and head at the peak of the inputs' type (bf16
+    tensor cores; f32 as f32_ops_seconds)."""
     from vidsgg_big_tpu_torch.ops.composed_attn import fused_attention_flops
     r, h, t, d = qh.shape
     nbytes = (qh.numel() + vt.numel() + 2 * x.numel()) * x.element_size() \
         + bias.numel() * 4
-    peak = PEAK_BF16_FLOP_S if x.dtype == torch.bfloat16 else PEAK_F32_FLOP_S
-    t_ops = fused_attention_flops(r, t, d, h) / peak
+    t_ops = ops_seconds(fused_attention_flops(r, t, d, h), x.dtype)
     t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_core_note(qh, x, backward=False):
+    """For a float32 row: the bound as earlier runs printed it, operations
+    at the CUDA-core FMA rate alone (the bound is now f32_ops_seconds)."""
+    if x.dtype != torch.float32:
+        return ""
+    from vidsgg_big_tpu_torch.ops.composed_attn import fused_attention_flops
+    r, h, t, d = qh.shape
+    flop = fused_attention_flops(r, t, d, h, backward) - (
+        fused_attention_flops(r, t, d, h) if backward else 0.0)
+    return (f"; CUDA-core FMA alone, the earlier definition: "
+            f"{1e3 * flop / PEAK_F32_FLOP_S} ms")
 
 
 def card_seeds(r, seed):
@@ -263,18 +294,17 @@ def card_seeds(r, seed):
 
 
 def composed_bwd_bound(qh, x, vt, bias):
-    """(bound ms, what bounds it) of one backward call: qh, vt, x, do,
-    bias and the forward's statistics read once, dqh, dvt and dx written
-    once; the TPU kernel's 10 T^2 d FLOP per row and head at the inputs'
-    peak."""
+    """(bound ms, what bounds it) of one backward call: qh, vt, x, do and
+    bias read once, dqh, dvt and dx written once (the forward's statistics
+    that the kernels read are their design's traffic, not the function's);
+    the TPU kernel's 10 T^2 d FLOP per row and head at the inputs' peak
+    (bf16 tensor cores; f32 as f32_ops_seconds)."""
     from vidsgg_big_tpu_torch.ops.composed_attn import fused_attention_flops
     r, h, t, d = qh.shape
     nbytes = 2 * (qh.numel() + vt.numel()) * x.element_size() \
-        + 3 * x.numel() * x.element_size() + bias.numel() * 4 \
-        + r * h * t * 2 * 4
-    peak = PEAK_BF16_FLOP_S if x.dtype == torch.bfloat16 else PEAK_F32_FLOP_S
-    t_ops = (fused_attention_flops(r, t, d, h, backward=True)
-             - fused_attention_flops(r, t, d, h)) / peak
+        + 3 * x.numel() * x.element_size() + bias.numel() * 4
+    t_ops = ops_seconds(fused_attention_flops(r, t, d, h, backward=True)
+                        - fused_attention_flops(r, t, d, h), x.dtype)
     t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
@@ -355,7 +385,12 @@ def check_composed_attention():
                 out, stats = composed_attention_train(*args, scale, p, seeds)
                 got = composed_attention_backward(*args, seeds, stats, do,
                                                   scale, p)
+                again = composed_attention_backward(*args, seeds, stats, do,
+                                                    scale, p)
                 torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"{dtype} R={r} T={t} dropout {p}: "
+                                         "two backward calls differ")
                 want = composed_attention_plain(*args, scale, p, seeds)
                 torch.testing.assert_close(out, want, **COMPOSED_TOL[dtype])
                 ferr = (out.float() - want.float()).abs().max().item()
@@ -373,8 +408,8 @@ def check_composed_attention():
                 note(("bwd", dtype), max(errs))
                 log(f"composed_attention train {dtype} R={r} T={t} "
                     f"dropout={p}: forward max |kernel - plain| = {ferr}; "
-                    f"backward dqh/dx/dvt {errs}")
-                del out, stats, got, want
+                    f"backward dqh/dx/dvt {errs}, two calls bit-equal")
+                del out, stats, got, again, want
             del args, seeds, do
         torch.cuda.empty_cache()
         max_err[("rate", dtype)] = rate
@@ -402,9 +437,10 @@ def check_composed_attention():
         bound_ms, bound_by = composed_bound(qh, x, vt, bias)
         log(f"composed_attention {dtype} R={G_B * G_Q} T={G_T}: kernel "
             f"{best['kernel']} ms, plain {best['plain']} ms, SDPA "
-            f"{best['library']} ms, bound {bound_ms} ms ({bound_by}); "
-            f"dropout {DROPOUT}: kernel {drop['kernel']} ms, plain "
-            f"{drop['plain']} ms, SDPA {drop['library']} ms")
+            f"{best['library']} ms, bound {bound_ms} ms ({bound_by}"
+            f"{cuda_core_note(qh, x)}); dropout {DROPOUT}: kernel "
+            f"{drop['kernel']} ms, plain {drop['plain']} ms, SDPA "
+            f"{drop['library']} ms, same bound")
         base = {"route": "cuda",
                 "source": "vidsgg_big_tpu_torch/csrc/composed_attn.cu",
                 "replaces": "vidsgg_big_tpu/ops/pallas_attention.py:67",
@@ -419,7 +455,8 @@ def check_composed_attention():
                          library_ms=drop["library"],
                          keep_rate=max_err[("rate", dtype)]))
         # backward: the train forward's statistics, a cotangent; SDPA's
-        # forward + backward of the same function minus its forward
+        # forward + backward of the same function minus its forward, at
+        # dropout 0 and at the train step's dropout
         _, stats = composed_attention_train(qh, x, vt, bias, scale, DROPOUT,
                                             seeds)
         do = (torch.randn(x.shape, generator=torch.Generator().manual_seed(
@@ -427,29 +464,40 @@ def check_composed_attention():
         lq, lkv, lv = (a.detach().clone().requires_grad_()
                        for a in (qh, x, vt))
 
-        def sdpa_fwd_bwd():
+        def sdpa_fwd_bwd(p):
             o = F.scaled_dot_product_attention(
                 lq, lkv[:, None].expand(-1, 8, -1, -1), lv, attn_mask=mask,
-                scale=scale).sum(1)
+                scale=scale, dropout_p=p).sum(1)
             o.backward(do)
 
-        def sdpa_fwd():
+        def sdpa_fwd(p):
             with torch.no_grad():
                 F.scaled_dot_product_attention(
                     lq, lkv[:, None].expand(-1, 8, -1, -1), lv,
-                    attn_mask=mask, scale=scale).sum(1)
+                    attn_mask=mask, scale=scale, dropout_p=p).sum(1)
         bwd = in_turns({
             "plain": lambda: composed_attention_plain_bwd(
                 qh, x, vt, bias, do, scale, DROPOUT, seeds),
             "kernel": lambda: composed_attention_backward(
                 qh, x, vt, bias, seeds, stats, do, scale, DROPOUT),
-            "library_fwd_bwd": sdpa_fwd_bwd, "library_fwd": sdpa_fwd})
+            # the same kernels with no keep-mask to draw: what the Philox
+            # regeneration costs
+            "kernel_dropout0": lambda: composed_attention_backward(
+                qh, x, vt, bias, seeds, stats, do, scale, 0.0),
+            "library_fwd_bwd": lambda: sdpa_fwd_bwd(0.0),
+            "library_fwd": lambda: sdpa_fwd(0.0),
+            "library_fwd_bwd_drop": lambda: sdpa_fwd_bwd(DROPOUT),
+            "library_fwd_drop": lambda: sdpa_fwd(DROPOUT)})
         bwd_bound, bwd_by = composed_bwd_bound(qh, x, vt, bias)
         library = bwd["library_fwd_bwd"] - bwd["library_fwd"]
+        library_drop = bwd["library_fwd_bwd_drop"] - bwd["library_fwd_drop"]
         log(f"composed_attention backward {dtype} R={G_B * G_Q} T={G_T} "
-            f"dropout {DROPOUT}: kernel {bwd['kernel']} ms, plain "
+            f"dropout {DROPOUT}: kernel {bwd['kernel']} ms ("
+            f"{bwd['kernel_dropout0']} ms at dropout 0), plain "
             f"{bwd['plain']} ms, SDPA forward+backward minus forward "
-            f"{library} ms, bound {bwd_bound} ms ({bwd_by})")
+            f"{library} ms at dropout 0, {library_drop} ms at dropout "
+            f"{DROPOUT}, bound {bwd_bound} ms ({bwd_by}"
+            f"{cuda_core_note(qh, x, backward=True)})")
         rows.append({
             "name": "composed_attention_backward_" + tag(dtype),
             "route": "cuda",
@@ -457,10 +505,42 @@ def check_composed_attention():
             "replaces": "vidsgg_big_tpu/ops/pallas_attention.py:89",
             "max_abs_err": max_err[("bwd", dtype)], "ms": bwd["kernel"],
             "plain_ms": bwd["plain"], "bound_ms": bwd_bound,
-            "bound_by": bwd_by, "library_ms": library})
+            "bound_by": bwd_by, "library_ms": library,
+            "library_dropout_ms": library_drop,
+            "ms_dropout0": bwd["kernel_dropout0"]})
         del qh, x, vt, bias, kv, mask, stats, do, lq, lkv, lv
         torch.cuda.empty_cache()
     return rows
+
+
+def opcode(instruction):
+    """The opcode of a SASS instruction, past its predicate."""
+    words = instruction.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def backward_code(ptxas_log):
+    """{kernel: registers, spills (ptxas) and tensor-core instructions
+    (cuobjdump of the built library)} of the four backward kernels: wgmma
+    (HGMMA) in the bf16 ones, TF32 mma.sync (HMMA ... TF32) in the f32
+    ones.  Fails where a kernel has none of its kind."""
+    from vidsgg_big_tpu_torch.ops import build
+    usage = build.ptxas_usage(ptxas_log)
+    code = build.sass(build.library_path("composed_attn_bwd"))
+    report = {}
+    for key in ("dq_bf16", "dkv_bf16", "dq_f32", "dkv_f32"):
+        name = f"composed_attn_bwd_{key}_kernel"
+        (use,) = [v for k, v in usage.items() if name in k]
+        (body,) = [v for k, v in code.items() if name in k]
+        ops = [opcode(i) for i in body]
+        report[key] = dict(use, hgmma=sum(o.startswith("HGMMA") for o in ops),
+                           tf32_hmma=sum(o.startswith("HMMA") and "TF32" in o
+                                         for o in ops))
+        log(f"backward kernel {name}: {report[key]}")
+        if report[key]["hgmma" if "bf16" in key else "tf32_hmma"] == 0:
+            raise AssertionError(f"{name} issues no "
+                                 f"{'HGMMA' if 'bf16' in key else 'TF32 HMMA'}")
+    return report
 
 
 def drive_exp2():
@@ -889,14 +969,21 @@ def main():
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
 
     t0 = time.perf_counter()
+    for name in build.KERNELS:   # a clean build, so that every log prints
+        build.library_path(name).unlink(missing_ok=True)
     logs = build.build(verbose=True)
     log(f"built {sorted(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name}: {line.strip()}")
+    bwd_code = backward_code(logs["composed_attn_bwd"])
 
     kernels = [check_role_attention()] + check_composed_attention()
+    for k in kernels:
+        if k["name"].startswith("composed_attention_backward_"):
+            tag = k["name"].rsplit("_", 1)[1]
+            k["code"] = {p: bwd_code[f"{p}_{tag}"] for p in ("dq", "dkv")}
     by_path = {"exp2_vidvrd": drive_exp2()}
     by_path["vidor_two_stage"], vidor = drive_vidor()
     by_path["grounding_train_step"], train = drive_train_step(card)

@@ -2,8 +2,9 @@
 JAX package's fused Pallas kernel (interpret mode, dropout 0: its PRNG is a
 zero stub there) and the direct masked attention, ``composed_qkvo`` against
 JAX's, the Philox keep-mask (known answers, determinism, realized rate),
-dropout statistics, the CPU dispatch of the wrappers, and, on a card, the
-CUDA kernels against the plain versions.
+dropout statistics, the CPU dispatch of the wrappers, the float32 backward
+kernels' 3xTF32 arithmetic emulated on the plain backward, and, on a card,
+the CUDA kernels against the plain versions.
 
 The host with the card has no JAX, so JAX is imported by the tests that use
 it and the card's tests run without the repo's conftest (which imports JAX):
@@ -350,6 +351,102 @@ def test_dropout_backward_regenerates_the_forward_mask():
 SCALE = 1.0 / math.sqrt(HD)
 
 
+# ---- the float32 backward kernel's arithmetic: 3xTF32 ---------------------
+
+def _tf32_bits(a, add):
+    """float32 with ``add`` added to its encoding, then the low 13 bits
+    cleared: TF32's 10 explicit mantissa bits."""
+    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + add) & 0xFFFFE000
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(
+        torch.int32).view(torch.float32)
+
+
+def _split_tf32(a):
+    """The kernels' split (composed_attn_common.cuh split_tf32): hi rounded
+    to nearest by adding half a TF32 ulp to the encoding and masking, lo =
+    a - hi as the tensor core reads it (truncated to TF32)."""
+    hi = _tf32_bits(a, 0x1000)
+    return hi, _tf32_bits(a - hi, 0)
+
+
+def _emulated_plain_bwd(monkeypatch, passes, args):
+    """The plain backward with every product (the einsums) taken as the
+    float32 kernels take it: three TF32 products, small terms first
+    (a_lo b_hi + a_hi b_lo + a_hi b_hi), or one (a_hi b_hi)."""
+    real = torch.einsum
+
+    def tf32(eq, a, b):
+        (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+        if passes == 1:
+            return real(eq, ah, bh)
+        return real(eq, al, bh) + real(eq, ah, bl) + real(eq, ah, bh)
+    monkeypatch.setattr(torch, "einsum", tf32)
+    try:
+        return composed_attention_plain_bwd(*args)
+    finally:
+        monkeypatch.setattr(torch, "einsum", real)
+
+
+def _grounding_width_case(t, seed):
+    """Two rows at the kernels' width (8 heads, d = 128) with masked keys;
+    the second row is fully masked."""
+    g = torch.Generator().manual_seed(seed)
+    qh = torch.randn(2, 8, t, 128, generator=g) * 0.1
+    x = torch.randn(2, t, 128, generator=g)
+    vt = torch.randn(2, 8, t, 128, generator=g) * 0.2
+    do = torch.randn(2, t, 128, generator=g) * 0.5
+    valid = torch.rand(2, t, generator=g) < 0.8
+    valid[:, 0], valid[-1] = True, False
+    bias = torch.where(valid, 0.0, -1e30)
+    return qh, x, vt, bias, do
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    """hi has TF32's 10 mantissa bits and lies within half a TF32 ulp of
+    a; hi + lo_full = a exactly; the lo the tensor core reads is within
+    2^-21 |a| of a - hi."""
+    a = torch.from_numpy(np.random.default_rng(0).normal(
+        size=4096).astype(np.float32)) * 10.0
+    hi, lo = _split_tf32(a)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(hi.view(torch.int32)))
+    assert ((a - hi).abs() <= 2.0 ** -11 * a.abs()).all()
+    assert torch.equal(hi + (a - hi), a)
+    assert ((lo - (a - hi)).abs() <= 2.0 ** -21 * a.abs()).all()
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("t", [128, 512])
+def test_plain_backward_in_3xtf32_holds_float32_tolerance(monkeypatch, t,
+                                                          dropout):
+    """The float32 backward kernels run every product as 3xTF32.  The plain
+    backward with every product so emulated stays within the card's
+    float32 tolerance (rtol 1e-4, atol 1e-5) of the plain float32 backward,
+    masked keys and a fully masked row included."""
+    qh, x, vt, bias, do = _grounding_width_case(t, seed=t)
+    seeds = torch.tensor([5, -7], dtype=torch.int32)
+    args = (qh, x, vt, bias, do, 0.25, dropout, seeds)
+    want = composed_attention_plain_bwd(*args)
+    got = _emulated_plain_bwd(monkeypatch, 3, args)
+    for g3, w in zip(got, want):
+        torch.testing.assert_close(g3, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [128, 512])
+def test_one_tf32_pass_fails_float32_tolerance(monkeypatch, t):
+    """One TF32 pass (a_hi b_hi) keeps about three digits: the plain
+    backward so emulated leaves the float32 tolerance, which is why the
+    kernels take three."""
+    qh, x, vt, bias, do = _grounding_width_case(t, seed=t)
+    seeds = torch.tensor([5, -7], dtype=torch.int32)
+    args = (qh, x, vt, bias, do, 0.25, 0.1, seeds)
+    want = composed_attention_plain_bwd(*args)
+    one_pass = _emulated_plain_bwd(monkeypatch, 1, args)
+    assert any(((g1 - w).abs() > 1e-5 + 1e-4 * w.abs()).any()
+               for g1, w in zip(one_pass, want))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -456,8 +553,11 @@ CARD_GRAD_TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-@pytest.mark.parametrize("r,t", [(4, 128), (3, 512)])
+@pytest.mark.parametrize("r,t", [(4, 128), (3, 512), (64, 1024)])
 def test_cuda_backward_matches_plain(cuda_device, dtype, dropout, r, t):
+    """The backward kernels (bf16 on wgmma, f32 in 3xTF32) against the
+    plain backward, and deterministic: a second call gives the same
+    bits."""
     qh, x, vt, bias = _card_inputs(r, t, dtype, cuda_device)
     seeds = _card_seeds(r, cuda_device, seed=1)
     do = (torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
@@ -467,10 +567,50 @@ def test_cuda_backward_matches_plain(cuda_device, dtype, dropout, r, t):
     before = composed_attention_backward.launches
     got = composed_attention_backward(qh, x, vt, bias, seeds, stats, do,
                                       0.25, dropout)
+    again = composed_attention_backward(qh, x, vt, bias, seeds, stats, do,
+                                        0.25, dropout)
     torch.cuda.synchronize()
-    assert composed_attention_backward.launches == before + 1
+    assert composed_attention_backward.launches == before + 2
     want = composed_attention_plain_bwd(qh, x, vt, bias, do, 0.25, dropout,
                                         seeds)
-    for g, w in zip(got, want):
+    for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
         torch.testing.assert_close(g, w, **CARD_GRAD_TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_backward_fully_masked_row(cuda_device, dtype):
+    """A row with no valid key (every logit -1e30): the forward's uniform
+    softmax is recomputed from (max, 1/l), so that row's gradients match
+    the plain backward too."""
+    qh, x, vt, bias = _card_inputs(2, 256, dtype, cuda_device, seed=5)
+    assert (bias[1] < 0).all()
+    seeds = _card_seeds(2, cuda_device, seed=3)
+    do = (torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
+          * 0.5).to(cuda_device, dtype)
+    _, stats = composed_attention_train(qh, x, vt, bias, 0.25, 0.1, seeds)
+    got = composed_attention_backward(qh, x, vt, bias, seeds, stats, do,
+                                      0.25, 0.1)
+    want = composed_attention_plain_bwd(qh, x, vt, bias, do, 0.25, 0.1,
+                                        seeds)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and g[1].abs().max() > 0
+        torch.testing.assert_close(g[1], w[1], **CARD_GRAD_TOLS[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_backward_runs_on_the_tensor_cores(cuda_device):
+    """The built backward library: its bf16 kernels issue wgmma (HGMMA)
+    and its f32 kernels TF32 mma (HMMA ... TF32)."""
+    from vidsgg_big_tpu_torch.ops import build
+    build.build(["composed_attn_bwd"])
+    code = build.sass(build.library_path("composed_attn_bwd"))
+    for key in ("dq_bf16", "dkv_bf16", "dq_f32", "dkv_f32"):
+        (body,) = [v for k, v in code.items() if key in k]
+        op = "HGMMA" if "bf16" in key else "HMMA"
+        hits = [i for i in body if i.startswith(op) and
+                ("TF32" in i or op == "HGMMA")]
+        assert hits, key

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,13 +32,14 @@ KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu",
 _loaded: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
+    path = shutil.which(name)
+    if path is None and os.path.exists(f"/usr/local/cuda/bin/{name}"):
+        path = f"/usr/local/cuda/bin/{name}"
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "host with the CUDA toolkit")
+        raise RuntimeError(f"{name} not found: the CUDA kernels are built on "
+                           "a host with the CUDA toolkit")
     return path
 
 
@@ -65,8 +67,9 @@ def build(names=None, verbose: bool = False) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(KERNELS[name])]
+        cmd = [cuda_tool(), *NVCC_FLAGS,
+               *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
+               str(KERNELS[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -90,3 +93,49 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def sass(path) -> dict:
+    """{kernel: [SASS instructions]} of a built library or cubin
+    (``cuobjdump -sass``)."""
+    return parse_sass(subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+        text=True, check=True).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """{kernel: [instructions]} of ``cuobjdump -sass`` output, kernel names
+    as the compiler mangled them, instructions without their offsets and
+    encodings."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;", line)
+        if name is not None and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes}} from the ``-Xptxas -v`` output of a build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if name is not None and m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if name is not None and m:
+            out[name]["registers"] = int(m.group(1))
+    return out

@@ -250,9 +250,11 @@ def composed_attention_backward(qh, x, vt, bias, seeds, stats, do,
 
     CPU tensors take :func:`composed_attention_plain_bwd` (``stats`` is not
     read).  CUDA tensors launch the backward kernels (one call: the
-    query-parallel dq kernel, then the key-parallel dk/dv kernel) on the
-    forward's ``stats`` and ``seeds``, and count one launch in
-    ``composed_attention_backward.launches``.
+    query-parallel dq kernel, then the key-parallel dk/dv kernel; bf16 on
+    wgmma, f32 as 3xTF32 on the tensor cores) on the forward's ``stats``
+    and ``seeds``, and count one launch in
+    ``composed_attention_backward.launches``.  A launch the card refuses
+    (shared memory, registers) raises; nothing falls back.
     """
     if _device_kind("composed_attention_backward", x) == "cpu":
         return composed_attention_plain_bwd(qh, x, vt, bias, do, scale,

@@ -20,8 +20,9 @@ Phases; any failure exits non-zero and prints no result line:
      realized rate; the backward called twice on the same inputs gives the
      same bits; timed at R=1024, T=512 beside PyTorch's SDPA (forward;
      forward + backward minus forward, at dropout 0 and 0.1); the
-     backward kernels' registers and spills (ptxas) and their tensor-core
-     instructions (cuobjdump: wgmma in bf16, TF32 mma in f32);
+     forward's four instances' and the backward kernels' registers and
+     spills (ptxas) and their tensor-core instructions (cuobjdump: wgmma in
+     bf16, TF32 mma in f32);
   3. the main paths at full width, each with every launch count set to 0
      just before it and read just after:
      a. BIG-C v10 inference at the VidVRD exp2 geometry (N=50 tracklets x
@@ -519,28 +520,47 @@ def opcode(instruction):
     return words[1] if words[0].startswith("@") else words[0]
 
 
-def backward_code(ptxas_log):
-    """{kernel: registers, spills (ptxas) and tensor-core instructions
-    (cuobjdump of the built library)} of the four backward kernels: wgmma
+def kernel_code(ptxas_log, library, kernels, what):
+    """{key: registers, spills (ptxas) and tensor-core instructions
+    (cuobjdump of the built library)} of the kernels ``{key: name}``: wgmma
     (HGMMA) in the bf16 ones, TF32 mma.sync (HMMA ... TF32) in the f32
-    ones.  Fails where a kernel has none of its kind."""
+    ones, and the waits on wgmma that ptxas placed (WARPGROUP.DEPBAR: one
+    after every HGMMA means it serialised them).  Fails where a kernel has
+    none of its kind."""
     from vidsgg_big_tpu_torch.ops import build
     usage = build.ptxas_usage(ptxas_log)
-    code = build.sass(build.library_path("composed_attn_bwd"))
+    code = build.sass(build.library_path(library))
     report = {}
-    for key in ("dq_bf16", "dkv_bf16", "dq_f32", "dkv_f32"):
-        name = f"composed_attn_bwd_{key}_kernel"
+    for key, name in kernels.items():
         (use,) = [v for k, v in usage.items() if name in k]
         (body,) = [v for k, v in code.items() if name in k]
         ops = [opcode(i) for i in body]
         report[key] = dict(use, hgmma=sum(o.startswith("HGMMA") for o in ops),
                            tf32_hmma=sum(o.startswith("HMMA") and "TF32" in o
-                                         for o in ops))
-        log(f"backward kernel {name}: {report[key]}")
+                                         for o in ops),
+                           wgmma_waits=sum(o.startswith("WARPGROUP.DEPBAR")
+                                           for o in ops))
+        log(f"{what} kernel {name}: {report[key]}")
         if report[key]["hgmma" if "bf16" in key else "tf32_hmma"] == 0:
             raise AssertionError(f"{name} issues no "
                                  f"{'HGMMA' if 'bf16' in key else 'TF32 HMMA'}")
     return report
+
+
+def forward_code(ptxas_log):
+    """kernel_code of the forward's four instances."""
+    from vidsgg_big_tpu_torch.tools.sass_compare import SOURCES
+    keys = ("bf16_inference", "bf16_train", "f32_inference", "f32_train")
+    return kernel_code(ptxas_log, "composed_attn",
+                       dict(zip(keys, SOURCES["forward"][1])), "forward")
+
+
+def backward_code(ptxas_log):
+    """kernel_code of the backward's four kernels."""
+    from vidsgg_big_tpu_torch.tools.sass_compare import SOURCES
+    keys = ("dq_bf16", "dkv_bf16", "dq_f32", "dkv_f32")
+    return kernel_code(ptxas_log, "composed_attn_bwd",
+                       dict(zip(keys, SOURCES["backward"][1])), "backward")
 
 
 def drive_exp2():
@@ -977,13 +997,18 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name}: {line.strip()}")
+    fwd_code = forward_code(logs["composed_attn"])
     bwd_code = backward_code(logs["composed_attn_bwd"])
 
     kernels = [check_role_attention()] + check_composed_attention()
     for k in kernels:
+        tag = k["name"].rsplit("_", 1)[1]
         if k["name"].startswith("composed_attention_backward_"):
-            tag = k["name"].rsplit("_", 1)[1]
             k["code"] = {p: bwd_code[f"{p}_{tag}"] for p in ("dq", "dkv")}
+        elif k["name"].startswith("composed_attention_dropout_"):
+            k["code"] = fwd_code[f"{tag}_train"]
+        elif k["name"].startswith("composed_attention_"):
+            k["code"] = fwd_code[f"{tag}_inference"]
     by_path = {"exp2_vidvrd": drive_exp2()}
     by_path["vidor_two_stage"], vidor = drive_vidor()
     by_path["grounding_train_step"], train = drive_train_step(card)

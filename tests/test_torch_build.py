@@ -1,8 +1,12 @@
 """The port's build helpers that run without the CUDA toolkit: reading
 ``cuobjdump -sass`` listings and ``-Xptxas -v`` logs (``ops/build.py``),
 which ``chip_smoke.py`` uses to count tensor-core instructions and report
-registers and spills of the built kernels."""
+registers and spills of the built kernels, and the argument parsing of
+``tools/sass_compare.py``."""
+import pytest
+
 from vidsgg_big_tpu_torch.ops import build
+from vidsgg_big_tpu_torch.tools import sass_compare
 
 SASS = """
 Fatbin elf code:
@@ -67,3 +71,23 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     before = build.library_path("k")
     (csrc / "h.cuh").write_text("// two\n")
     assert build.library_path("k") != before
+
+
+@pytest.mark.parametrize("argv,source,kernel", [
+    (["other"], "composed_attn.cu", "composed_attn_f32_kernelILb1E"),
+    (["--source", "forward", "other"], "composed_attn.cu",
+     "composed_attn_bf16_kernelILb0E"),
+    (["--source", "backward", "other"], "composed_attn_bwd.cu",
+     "composed_attn_bwd_dkv_f32_kernel")])
+def test_sass_compare_picks_the_source_and_its_kernels(argv, source, kernel):
+    """``sass_compare [--source forward|backward] OTHER``: the forward by
+    default; each source with the names of its four kernels."""
+    args = sass_compare.parse_args(argv)
+    assert args.other == "other"
+    path, kernels = sass_compare.SOURCES[args.source]
+    assert path.name == source and len(kernels) == 4 and kernel in kernels
+
+
+def test_sass_compare_rejects_an_unknown_source():
+    with pytest.raises(SystemExit):
+        sass_compare.parse_args(["--source", "role", "other"])

@@ -2,9 +2,9 @@
 JAX package's fused Pallas kernel (interpret mode, dropout 0: its PRNG is a
 zero stub there) and the direct masked attention, ``composed_qkvo`` against
 JAX's, the Philox keep-mask (known answers, determinism, realized rate),
-dropout statistics, the CPU dispatch of the wrappers, the float32 backward
-kernels' 3xTF32 arithmetic emulated on the plain backward, and, on a card,
-the CUDA kernels against the plain versions.
+dropout statistics, the CPU dispatch of the wrappers, the float32 kernels'
+3xTF32 arithmetic emulated on the plain forward and backward, and, on a
+card, the CUDA kernels against the plain versions.
 
 The host with the card has no JAX, so JAX is imported by the tests that use
 it and the card's tests run without the repo's conftest (which imports JAX):
@@ -370,10 +370,12 @@ def _split_tf32(a):
     return hi, _tf32_bits(a - hi, 0)
 
 
-def _emulated_plain_bwd(monkeypatch, passes, args):
-    """The plain backward with every product (the einsums) taken as the
-    float32 kernels take it: three TF32 products, small terms first
-    (a_lo b_hi + a_hi b_lo + a_hi b_hi), or one (a_hi b_hi)."""
+def _emulated_plain(monkeypatch, passes, args,
+                    fn=composed_attention_plain_bwd):
+    """A plain version (the backward by default) with every product (the
+    einsums) taken as the float32 kernels take it: three TF32 products,
+    small terms first (a_lo b_hi + a_hi b_lo + a_hi b_hi), or one (a_hi
+    b_hi)."""
     real = torch.einsum
 
     def tf32(eq, a, b):
@@ -383,7 +385,7 @@ def _emulated_plain_bwd(monkeypatch, passes, args):
         return real(eq, al, bh) + real(eq, ah, bl) + real(eq, ah, bh)
     monkeypatch.setattr(torch, "einsum", tf32)
     try:
-        return composed_attention_plain_bwd(*args)
+        return fn(*args)
     finally:
         monkeypatch.setattr(torch, "einsum", real)
 
@@ -428,7 +430,7 @@ def test_plain_backward_in_3xtf32_holds_float32_tolerance(monkeypatch, t,
     seeds = torch.tensor([5, -7], dtype=torch.int32)
     args = (qh, x, vt, bias, do, 0.25, dropout, seeds)
     want = composed_attention_plain_bwd(*args)
-    got = _emulated_plain_bwd(monkeypatch, 3, args)
+    got = _emulated_plain(monkeypatch, 3, args)
     for g3, w in zip(got, want):
         torch.testing.assert_close(g3, w, rtol=1e-4, atol=1e-5)
 
@@ -442,9 +444,37 @@ def test_one_tf32_pass_fails_float32_tolerance(monkeypatch, t):
     seeds = torch.tensor([5, -7], dtype=torch.int32)
     args = (qh, x, vt, bias, do, 0.25, 0.1, seeds)
     want = composed_attention_plain_bwd(*args)
-    one_pass = _emulated_plain_bwd(monkeypatch, 1, args)
+    one_pass = _emulated_plain(monkeypatch, 1, args)
     assert any(((g1 - w).abs() > 1e-5 + 1e-4 * w.abs()).any()
                for g1, w in zip(one_pass, want))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("t", [128, 512])
+def test_plain_forward_in_3xtf32_holds_float32_tolerance(monkeypatch, t,
+                                                         dropout):
+    """The float32 forward kernels run both products (S = qh x^T and the
+    weights times vt) as 3xTF32.  The plain forward with every product so
+    emulated stays within the card's float32 tolerance (rtol 1e-4, atol
+    1e-5) of the plain float32 forward, masked keys and a fully masked row
+    included."""
+    qh, x, vt, bias, _ = _grounding_width_case(t, seed=t + 1)
+    seeds = torch.tensor([3, -11], dtype=torch.int32)
+    args = (qh, x, vt, bias, 0.25, dropout, seeds)
+    want = composed_attention_plain(*args)
+    got = _emulated_plain(monkeypatch, 3, args, composed_attention_plain)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [128, 512])
+def test_one_tf32_pass_fails_forward_float32_tolerance(monkeypatch, t):
+    """With one TF32 pass per product the plain forward leaves the float32
+    tolerance, which is why the forward kernels take three."""
+    qh, x, vt, bias, _ = _grounding_width_case(t, seed=t + 1)
+    args = (qh, x, vt, bias, 0.25)
+    want = composed_attention_plain(*args)
+    one_pass = _emulated_plain(monkeypatch, 1, args, composed_attention_plain)
+    assert ((one_pass - want).abs() > 1e-5 + 1e-4 * want.abs()).any()
 
 
 @pytest.fixture
@@ -482,7 +512,8 @@ CARD_TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("r,t", [(1, 128), (4, 128), (3, 512), (2, 1024)])
+@pytest.mark.parametrize("r,t", [(1, 128), (4, 128), (3, 192), (3, 512),
+                                 (2, 1024)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, r, t):
     qh, x, vt, bias = _card_inputs(r, t, dtype, cuda_device)
     before = composed_attention.launches
@@ -522,7 +553,7 @@ def _card_seeds(r, device, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("r,t", [(4, 128), (3, 512)])
+@pytest.mark.parametrize("r,t", [(4, 128), (3, 192), (3, 512), (2, 1024)])
 def test_cuda_dropout_forward_matches_plain(cuda_device, dtype, r, t):
     """The train instance at dropout 0.1 against the plain version on the
     same seeds (the masks agree bit for bit, so the outputs agree to the
@@ -542,6 +573,64 @@ def test_cuda_dropout_forward_matches_plain(cuda_device, dtype, r, t):
     assert stats.shape == (r, 8, t, 2) and torch.isfinite(stats).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [None, 0.0, 0.1])
+def test_cuda_forward_is_deterministic(cuda_device, dtype, dropout):
+    """Two calls of a forward instance (inference: dropout None; train at
+    dropout 0 and 0.1) on the same inputs give the same bits, statistics
+    included."""
+    qh, x, vt, bias = _card_inputs(3, 512, dtype, cuda_device, seed=6)
+    seeds = _card_seeds(3, cuda_device, seed=6)
+    if dropout is None:
+        calls = [(composed_attention(qh, x, vt, bias, 0.25),)
+                 for _ in range(2)]
+    else:
+        calls = [composed_attention_train(qh, x, vt, bias, 0.25, dropout,
+                                          seeds) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*calls):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [None, 0.1])
+def test_cuda_forward_fully_masked_row(cuda_device, dtype, dropout):
+    """A row with no valid key gets the plain version's uniform softmax
+    (the mean of vt over T, dropped at the same keys), from both
+    instances."""
+    qh, x, vt, bias = _card_inputs(2, 256, dtype, cuda_device, seed=8)
+    assert (bias[1] < 0).all()
+    seeds = _card_seeds(2, cuda_device, seed=8)
+    p = dropout or 0.0
+    if dropout is None:
+        out = composed_attention(qh, x, vt, bias, 0.25)
+    else:
+        out = composed_attention_train(qh, x, vt, bias, 0.25, p, seeds)[0]
+    want = composed_attention_plain(qh, x, vt, bias, 0.25, p, seeds)
+    assert torch.isfinite(out).all() and out[1].abs().max() > 0
+    torch.testing.assert_close(out[1], want[1], **CARD_TOLS[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_forward_runs_on_the_tensor_cores(cuda_device):
+    """The built forward library: its two bf16 instances issue wgmma
+    (HGMMA) and its two f32 instances TF32 mma (HMMA ... TF32)."""
+    from vidsgg_big_tpu_torch.ops import build
+    build.build(["composed_attn"])
+    code = build.sass(build.library_path("composed_attn"))
+    for key in ("bf16_kernelILb0E", "bf16_kernelILb1E", "f32_kernelILb0E",
+                "f32_kernelILb1E"):
+        (body,) = [v for k, v in code.items() if key in k]
+        op = "HGMMA" if "bf16" in key else "HMMA"
+        hits = [i for i in body if i.startswith(op) and
+                ("TF32" in i or op == "HGMMA")]
+        assert hits, key
+
+
 # kernel vs plain backward: float32 sums in another order; in bf16 both
 # round a_d and ds to bf16 before their products, after float32 sums taken
 # in another order (one bf16 step, 2^-8 relative, at most)
@@ -553,7 +642,7 @@ CARD_GRAD_TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-@pytest.mark.parametrize("r,t", [(4, 128), (3, 512), (64, 1024)])
+@pytest.mark.parametrize("r,t", [(4, 128), (2, 192), (3, 512), (64, 1024)])
 def test_cuda_backward_matches_plain(cuda_device, dtype, dropout, r, t):
     """The backward kernels (bf16 on wgmma, f32 in 3xTF32) against the
     plain backward, and deterministic: a second call gives the same

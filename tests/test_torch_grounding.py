@@ -256,3 +256,26 @@ def test_infer_step_matches_jax(wide_models):
     assert not got[2].numpy()[-1, -1].any()
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+def test_stable_head_init_scales_the_final_head_kernels():
+    """``stable_head_init`` (the JAX config's opt-in, kept by ``from_dict``)
+    starts the three heads' final point-wise kernels at 0.02x the default
+    init from the same generator; every other parameter is untouched."""
+    cfg = GroundingConfig.from_dict(dict(DEMO, stable_head_init=True))
+    assert cfg.stable_head_init
+    assert not GroundingConfig.from_dict(DEMO).stable_head_init
+    plain = GroundingModel(GroundingConfig.from_dict(DEMO),
+                           generator=torch.Generator().manual_seed(0))
+    stable = GroundingModel(cfg, generator=torch.Generator().manual_seed(0))
+    finals = {f"{h}.4.point_wise.weight"
+              for h in ("regr_head", "conf_head", "cls_head")}
+    want = plain.state_dict()
+    for name, got in stable.state_dict().items():
+        if name in finals:
+            torch.testing.assert_close(got, want[name] * 0.02, rtol=0,
+                                       atol=0)
+            assert got.abs().max() > 0
+        else:
+            assert torch.equal(got, want[name]), name
+    assert finals <= set(want)

@@ -45,7 +45,8 @@ def _final_state(out_dir):
 @pytest.fixture(scope="module")
 def full_run(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("full"))
-    summary = train_vidor.main(BASE + ["--output_dir", out])
+    summary = train_vidor.main(BASE + ["--output_dir", out, "--ckpt_every",
+                                       "1"])
     return out, summary
 
 
@@ -88,6 +89,11 @@ def test_stop_and_resume_is_bit_equal(full_run, tmp_path):
     for k, st in a["optimizer"]["state"].items():
         for name, v in st.items():
             assert torch.equal(v, b["optimizer"]["state"][k][name]), (k, name)
+
+
+def test_ckpt_every_defaults_to_the_reference_cadence():
+    """A checkpoint every 10 epochs, as the JAX trainer's default."""
+    assert train_vidor.parse_args(["--cfg_path", CFG]).ckpt_every == 10
 
 
 def test_left_out_modes_raise():

@@ -1,8 +1,7 @@
 // Pieces shared by the composed-attention forward (composed_attn.cu) and
-// backward (composed_attn_bwd.cu) kernels: tile geometry, cp.async and
-// ldmatrix/mma.sync wrappers for the bf16 kernels, the float32 tile loops,
-// wgmma on 128-byte swizzled tiles, float32 products on the tensor cores as
-// 3xTF32, and the Philox4x32-10 generator of the attention-dropout
+// backward (composed_attn_bwd.cu) kernels: tile geometry, cp.async
+// wrappers, wgmma on 128-byte swizzled tiles, float32 products on the tensor
+// cores as 3xTF32, and the Philox4x32-10 generator of the attention-dropout
 // keep-mask.  Every helper is inline, so a kernel's machine code depends
 // only on the helpers it calls.
 //
@@ -31,11 +30,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 128;   // composite width
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(BQ == BK, "the tile loaders copy BK rows for Q, K and V");
 
 // ---- Philox4x32-10 (Salmon et al., SC'11; Random123's constants) --------
 struct Words4 {
@@ -99,22 +95,7 @@ __device__ __forceinline__ void keep_frag_k(uint32_t seed, int h, int q,
   kp[3] = (odd ? w.x[3] : r1) >= thr;
 }
 
-// the keep bit of one (q, k)
-__device__ __forceinline__ bool keep_one(uint32_t seed, int h, int q, int k,
-                                         uint32_t thr) {
-  const Words4 w = philox4x32_10((uint32_t)q >> 1, (uint32_t)k >> 1,
-                                 (uint32_t)h, 0u, seed, 0u);
-  return w.x[2 * (q & 1) + (k & 1)] >= thr;
-}
-
-// ---- bfloat16 kernels: tensor cores ---------------------------------------
-constexpr int TC_WARPS = 4;                 // 16 rows each
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int LDH = D + 8;    // bf16 row stride of a tile: 272 B, so the 8
-                              // rows of an ldmatrix hit distinct banks
-constexpr int TILE = BK * LDH;
-static_assert(TC_WARPS * 16 == BQ, "one warp per 16 rows");
-
+// ---- cp.async, bf16 packing, quad sums -------------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -135,92 +116,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row major) b (16 x 8, bf16, col major)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// BK rows x D bf16 from global (row stride D) into shared (row stride LDH),
-// 16 bytes a thread per step
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int tid) {
-  constexpr int VEC = D / 8;
-  static_assert(BK * VEC % TC_THREADS == 0, "whole steps per thread");
-#pragma unroll
-  for (int step = 0; step < BK * VEC / TC_THREADS; ++step) {
-    const int i = tid + step * TC_THREADS, r = i / VEC, c = i % VEC;
-    cp_async16(dst + r * LDH + c * 8, src + (size_t)r * D + c * 8);
-  }
-}
-
-// ---- float32 kernels: CUDA cores --------------------------------------------
-constexpr int F_THREADS = 256;   // 16 x 16
-constexpr int LDF = D + 1;       // float row stride of the (rows x D) tiles
-constexpr int LDA = BK + 1;      // float row stride of a (64 x 64) tile
-
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              int tid) {
-  for (int i = tid; i < BK * D; i += F_THREADS)
-    dst[(i / D) * LDF + i % D] = __ldg(src + i);
-}
-
-// s[i][j] = <a row ty + 16 i, b row tx + 16 j>
-__device__ __forceinline__ void thread_scores(const float* sa, const float* sb,
-                                              int ty, int tx, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sa[(ty + 16 * i) * LDF + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = sb[(tx + 16 * j) * LDF + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// reductions over the 16 lanes that share ty (lane % 16 = tx)
-__device__ __forceinline__ float row_max16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
 }
 
 // reduction over the 4 lanes of an mma quad (the lanes that share a row)
@@ -293,6 +191,11 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// all but the most recent group done
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // pins registers of an asynchronous product in place: before wg_fence (so

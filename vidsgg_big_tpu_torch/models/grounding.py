@@ -50,6 +50,9 @@ class GroundingConfig:
     attn_dropout: float = 0.1
     attn_bytes_budget: int = 1 << 30
     fused_attention: bool = True
+    # the JAX config's opt-in: the three heads' final point-wise kernels
+    # start at 0.02x their default init, so head logits start O(1)
+    stable_head_init: bool = False
 
     @classmethod
     def from_dict(cls, d: dict):
@@ -67,7 +70,8 @@ class GroundingConfig:
                    compute_dtype=d.get("compute_dtype", "float32"),
                    attn_dropout=d.get("attn_dropout", 0.1),
                    attn_bytes_budget=d.get("attn_bytes_budget", 1 << 30),
-                   fused_attention=d.get("fused_attention", True))
+                   fused_attention=d.get("fused_attention", True),
+                   stable_head_init=d.get("stable_head_init", False))
 
 
 def attention_lowering(b: int, t: int, d: int, budget: int,
@@ -307,7 +311,9 @@ class GroundingModel(nn.Module):
     def reset_parameters(self, generator=None):
         """The JAX package's init in kind: linear layers U(+-1/sqrt(fan_in))
         (torch's default), attention q/k/v xavier-uniform per (d, d) block,
-        convs kaiming-normal, zero biases, N(0, 0.02) name tables."""
+        convs kaiming-normal, zero biases, N(0, 0.02) name tables; with
+        ``stable_head_init`` the heads' final point-wise kernels x 0.02
+        (JAX's ``out_kernel_init``, models/grounding.py:479-491)."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 bound = 1.0 / math.sqrt(mod.in_features)
@@ -328,6 +334,9 @@ class GroundingModel(nn.Module):
                 mod.bias.zero_()
         for table in (self.EntiNameEmb, self.PredNameEmb):
             table.normal_(0.0, 0.02, generator=generator)
+        if self.cfg.stable_head_init:
+            for head in (self.regr_head, self.conf_head, self.cls_head):
+                head[-1].point_wise.weight.mul_(0.02)
 
     def forward(self, video_feats, clip_mask, query_cats, temporal,
                 query_mask=None, generator=None):

@@ -51,6 +51,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def nvcc_command(src, out, verbose: bool = False) -> list:
+    """The nvcc call that compiles ``src`` into the shared library ``out``
+    with the port's flags; ``verbose`` adds ``-Xptxas -v``."""
+    return [cuda_tool(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            "-o", str(out), str(src)]
+
+
+def compile_library(src, out, verbose: bool = False) -> str:
+    """Compile one source (of this checkout or another) into ``out``;
+    returns the compiler's output, raises with it on failure."""
+    proc = subprocess.run(nvcc_command(src, out, verbose),
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+    return proc.stdout
+
+
 def build(names=None, verbose: bool = False) -> dict:
     """Compile the named kernels (default: all) that are not built yet.
 
@@ -67,9 +85,7 @@ def build(names=None, verbose: bool = False) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [cuda_tool(), *NVCC_FLAGS,
-               *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-               str(KERNELS[name])]
+        cmd = nvcc_command(KERNELS[name], tmp, verbose)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -172,9 +172,12 @@ def _check_seeds(name, seeds, r, device):
                          f"({r},) on {device}")
 
 
-def _launch_forward(train: bool, qh, x, vt, bias, scale, dropout, seeds):
+def _launch_forward(train: bool, qh, x, vt, bias, scale, dropout, seeds,
+                    lib=None):
     """The forward kernel on the card: the inference instance, or the train
-    instance (dropout and the softmax statistics).  Returns (out, stats)."""
+    instance (dropout and the softmax statistics).  Returns (out, stats).
+    ``lib``: another build of ``csrc/composed_attn.cu`` bound by
+    :func:`bind_library` (``tools/forward_turns.py``), else this one."""
     name = "composed_attention_train" if train else "composed_attention"
     _check_card_inputs(name, qh, x, vt, bias, seeds)
     r, h, t, _ = qh.shape
@@ -184,7 +187,7 @@ def _launch_forward(train: bool, qh, x, vt, bias, scale, dropout, seeds):
     if r == 0:                        # an empty grid cannot be launched
         return out, stats
     is_bf16 = int(x.dtype == torch.bfloat16)
-    lib = _library("composed_attn")
+    lib = lib or _library("composed_attn")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if train:
@@ -368,7 +371,12 @@ def fused_composed_attention(x, mask, wqk, wb, wvo, cb, *, hd: int,
 def _library(name: str):
     from .build import load
 
-    lib = load(name)
+    return bind_library(load(name), name)
+
+
+def bind_library(lib, name: str):
+    """Declare the C signatures of the kernel library ``name``
+    ("composed_attn" or "composed_attn_bwd") on the loaded ``lib``."""
     ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float)
     if name == "composed_attn" and lib.composed_attn_forward.argtypes is None:

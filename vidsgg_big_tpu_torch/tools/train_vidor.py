@@ -209,7 +209,9 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--ckpt_every", type=int, default=1)
+    parser.add_argument("--ckpt_every", type=int, default=10,
+                        help="checkpoint every N epochs and at the last "
+                             "(default 10, the reference's cadence)")
     parser.add_argument("--from_checkpoint", action="store_true")
     parser.add_argument("--ckpt_path", type=str, default=None,
                         help="checkpoint directory (default: "

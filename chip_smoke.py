@@ -3,16 +3,21 @@
 
 Run from the root of a checkout on a host with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent OTHER_CHECKOUT]
 
 Phases; any failure exits non-zero and prints no result line:
   1. the card's name and power limit; build every CUDA kernel with nvcc
      (one process per source, started together);
   2. every kernel against its plain PyTorch version on the card at the main
      paths' shapes, and its time beside the plain version's and its bound
-     (CUDA events): role attention at exp2 N=50, exp4 N=180 and the VidOR
-     stage-A bucket N=192, B in {1, 8, 32}, padded videos included, timed
-     at exp2 B=8; composed attention: the inference forward at T in {128,
+     (CUDA events): role attention at exp2 N=50, the VidOR stage-A rungs
+     N=64 and 192 and exp4 N=180, B in {1, 4, 8, 32}, padded videos
+     included, and on the decoder layer's views; timed on the device alone
+     (a CUDA graph of 20 calls, tools/role_attn_turns.py) at exp2 B=8 N=50,
+     stage A B=4 N=64 and B=4 N=192 beside the wrapper's wall time a call,
+     and with ``--parent CHECKOUT`` against that checkout's kernel in turns;
+     its three instances' registers, spills and TF32 HMMA; composed
+     attention: the inference forward at T in {128,
      512, 1024} x R in {4, 64, 1024}, the train forward (dropout 0 and
      0.1) and the backward at T in {128, 512} x R in {4, 64, 1024} and
      (R=64, T=1024), float32 and bfloat16, masked keys and a fully masked
@@ -52,12 +57,14 @@ Phases; any failure exits non-zero and prints no result line:
      ms/video at that geometry and the two-stage videos/s;
   5. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
+import argparse
 import copy
 import dataclasses
 import json
 import math
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -164,13 +171,14 @@ def role_attn_inputs(b, n, seed):
 
 def role_attn_bound(p, e, enco, mask):
     """(bound ms, what bounds it) for one call on these inputs: each input
-    read once as the kernel takes it (float32, mask int32), each output
-    written once; matmul FLOPs at the float32 peak (f32_ops_seconds)."""
+    read once as the kernel takes it (float32, the mask at its own width,
+    one byte for bool), each output written once; matmul FLOPs at the
+    float32 peak (f32_ops_seconds)."""
     from vidsgg_big_tpu_torch.ops.role_attn import role_attention_flops
     b, _, q, dh = p.shape
     n, de = e.shape[2], enco.shape[2]
-    nbytes = 4 * (p.numel() + e.numel() + enco.numel() + mask.numel()
-                  + b * 2 * q * n + b * 2 * q * de)
+    nbytes = 4 * (p.numel() + e.numel() + enco.numel() + b * 2 * q * n
+                  + b * 2 * q * de) + mask.numel() * mask.element_size()
     t_bytes = nbytes / PEAK_BYTES_S
     t_ops = f32_ops_seconds(role_attention_flops(b, q, n, dh, de))
     return 1e3 * max(t_bytes, t_ops), (
@@ -208,41 +216,78 @@ def in_turns(fns):
     return {name: min(t) for name, t in times.items()}
 
 
-def check_role_attention():
-    """Phase 2: kernel vs plain at exp2/exp4/VidOR shapes, timing at exp2
-    B=8."""
+def check_role_attention(parent=None):
+    """Phase 2: kernel vs plain at exp2/exp4/VidOR shapes, on contiguous
+    operands and on the decoder layer's views; then on the device alone
+    (CUDA-graph replay, role_attn_turns) at exp2 B=8 N=50, stage A B=4
+    N=64 and B=4 N=192, kernel and plain in turns, the wrapper's wall time
+    per call and the bound beside them; with ``parent`` (another
+    checkout's root), its kernel in turns A B B A at the same shapes."""
     from vidsgg_big_tpu_torch.ops.role_attn import (role_attention,
                                                     role_attention_plain)
+    from vidsgg_big_tpu_torch.tools import role_attn_turns as turns
     max_err = 0.0
-    for n in (50, 180, 192):
-        for b in (1, 8, 32):
-            p, e, enco, mask = role_attn_inputs(b, n, seed=b * 1000 + n)
-            att, val = role_attention(p, e, enco, mask, DIM_ENTI)
-            torch.cuda.synchronize()
-            att_p, val_p = role_attention_plain(p, e, enco, mask, DIM_ENTI)
-            torch.testing.assert_close(att, att_p, **ATT_TOL)
-            torch.testing.assert_close(val, val_p, **VAL_TOL)
-            if b > 1 and (att[-1].any() or val[-1].any()):
-                raise AssertionError("padded video got nonzero attention")
-            err = max((att - att_p).abs().max().item(),
-                      (val - val_p).abs().max().item())
-            max_err = max(max_err, err)
-            log(f"role_attention B={b} N={n}: max |kernel - plain| = {err}")
-    args = role_attn_inputs(BATCH, 50, seed=0) + [DIM_ENTI]
-    # in turns, plain / kernel / kernel / plain, on one card
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = role_attention_plain if which == "plain" else role_attention
-        times[which].append(cuda_ms(lambda: fn(*args)))
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    bound_ms, bound_by = role_attn_bound(*args[:4])
-    log(f"role_attention exp2 B={BATCH} N=50: kernel {times['kernel']} ms, "
-        f"plain {times['plain']} ms, bound {bound_ms} ms ({bound_by})")
+
+    def check(p, e, enco, mask, what):
+        nonlocal max_err
+        att, val = role_attention(p, e, enco, mask, DIM_ENTI)
+        torch.cuda.synchronize()
+        att_p, val_p = role_attention_plain(p, e, enco, mask, DIM_ENTI)
+        torch.testing.assert_close(att, att_p, **ATT_TOL)
+        torch.testing.assert_close(val, val_p, **VAL_TOL)
+        if not mask[-1].any() and (att[-1].any() or val[-1].any()):
+            raise AssertionError("padded video got nonzero attention")
+        err = max((att - att_p).abs().max().item(),
+                  (val - val_p).abs().max().item())
+        max_err = max(max_err, err)
+        log(f"role_attention {what}: max |kernel - plain| = {err}")
+
+    for n in (50, 64, 180, 192):
+        for b in (1, 4, 8, 32):
+            check(*role_attn_inputs(b, n, seed=b * 1000 + n),
+                  f"B={b} N={n}")
+    for _, b, n in turns.SHAPES:
+        check(*turns.layer_inputs(b, n, seed=n), f"B={b} N={n}, views")
+    shapes = {}
+    for name, b, n in turns.SHAPES:
+        args = turns.layer_inputs(b, n, seed=b * 1000 + n)
+        times = turns.graph_turns(
+            {"plain": lambda: role_attention_plain(*args, DIM_ENTI),
+             "kernel": lambda: role_attention(*args, DIM_ENTI)},
+            ["plain", "kernel", "kernel", "plain"])
+        bound_ms, bound_by = role_attn_bound(*args)
+        shapes[name] = {
+            "b": b, "n": n, "device_ms": min(times["kernel"]),
+            "plain_device_ms": min(times["plain"]),
+            "call_ms": turns.wall_ms(lambda: role_attention(*args,
+                                                            DIM_ENTI)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "parent_device_ms": None}
+        log(f"role_attention {name} (B={b}, N={n}) on the device alone "
+            f"(CUDA graph of {turns.CALLS} calls, ms a call, both turns): "
+            f"kernel {times['kernel']}, plain {times['plain']}; wrapper "
+            f"wall {shapes[name]['call_ms']} ms a call; bound {bound_ms} "
+            f"ms ({bound_by})")
+    if parent is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = turns.other_libraries([parent], tmp)
+            res = turns.run_turns(libs)
+        for name, r in res.items():
+            shapes[name]["parent_device_ms"] = min(r[parent])
+            shapes[name]["device_ms_beside_parent"] = min(r["this"])
+            log(f"role_attention {name} in turns A B B A with {parent}: "
+                f"parent {r[parent]} ms, this {r['this']} ms, max |this - "
+                f"parent| {r['max_abs_diff'][parent]}")
+    exp2 = shapes[turns.SHAPES[0][0]]
     return {"name": "role_attention", "route": "cuda",
             "source": "vidsgg_big_tpu_torch/csrc/role_attn.cu",
             "replaces": "vidsgg_big_tpu/ops/pallas_role_attn.py:27",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max_err, "ms": exp2["device_ms"],
+            "plain_ms": exp2["plain_device_ms"],
+            "bound_ms": exp2["bound_ms"], "bound_by": exp2["bound_by"],
+            "library_ms": None, "device_ms": exp2["device_ms"],
+            "call_ms": exp2["call_ms"],
+            "parent_device_ms": exp2["parent_device_ms"], "shapes": shapes}
 
 
 def composed_inputs(r, t, dtype, seed):
@@ -553,6 +598,15 @@ def forward_code(ptxas_log):
     keys = ("bf16_inference", "bf16_train", "f32_inference", "f32_train")
     return kernel_code(ptxas_log, "composed_attn",
                        dict(zip(keys, SOURCES["forward"][1])), "forward")
+
+
+def role_code(ptxas_log):
+    """kernel_code of the role-attention kernel's three instances, by the
+    values columns of a pass: 512, 256 and 128 (De / S above 256, above
+    128, up to 128)."""
+    return kernel_code(ptxas_log, "role_attn",
+                       {f"f32_cw{cw}": f"role_attn_kernelILi{cw}E"
+                        for cw in (512, 256, 128)}, "role attention")
 
 
 def backward_code(ptxas_log):
@@ -974,7 +1028,12 @@ def compare_grounding(cpu, gpu):
         torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-2)
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", default=None,
+                        help="root of another checkout whose role-attention "
+                             "kernel phase 2 times in turns with this one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -999,10 +1058,14 @@ def main():
                 log(f"{name}: {line.strip()}")
     fwd_code = forward_code(logs["composed_attn"])
     bwd_code = backward_code(logs["composed_attn_bwd"])
+    role = check_role_attention(args.parent)
+    role["code"] = role_code(logs["role_attn"])
 
-    kernels = [check_role_attention()] + check_composed_attention()
+    kernels = [role] + check_composed_attention()
     for k in kernels:
         tag = k["name"].rsplit("_", 1)[1]
+        if k["name"] == "role_attention":
+            continue
         if k["name"].startswith("composed_attention_backward_"):
             k["code"] = {p: bwd_code[f"{p}_{tag}"] for p in ("dq", "dkv")}
         elif k["name"].startswith("composed_attention_dropout_"):

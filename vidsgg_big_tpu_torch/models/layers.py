@@ -161,9 +161,10 @@ class RoleAttnDecoderLayer(nn.Module):
         pred_query = pred_query + pos_emb[None]
         enti2att = self.fc_enti2att(enco_output)             # (B, N, Da)
         pred2att = self.fc_pred2att(pred_query)              # (B, Q, Da)
+        # role r reads the r-th half: views (B, 2, *, half), no copy
         half = self.dim_att // 2
-        e = torch.stack([enti2att[..., :half], enti2att[..., half:]], dim=1)
-        p = torch.stack([pred2att[..., :half], pred2att[..., half:]], dim=1)
+        e = enti2att.unflatten(-1, (2, half)).transpose(1, 2)
+        p = pred2att.unflatten(-1, (2, half)).transpose(1, 2)
         fn = role_attention_plain if self.training else role_attention
         att, values = fn(p, e, enco_output, traj_mask, self.dim_enti)
         role_q = (self.fc_rolewise[0](values[:, 0])

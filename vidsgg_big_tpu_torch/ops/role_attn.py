@@ -21,11 +21,31 @@ import math
 
 import torch
 
+QUERY_TILE = 16          # query rows of one block (csrc/role_attn.cu QT)
+MAX_SPLITS = 4           # blocks that may share one query tile's De columns
+MIN_SPLIT_COLUMNS = 128  # the fewest De columns a split leaves a block
+
+_sm_count: dict = {}
+
 
 def role_attention_flops(b: int, q: int, n: int, dh: int, de: int) -> float:
     """Matmul FLOPs of one call: logits p e^T (2*Q*N*Dh) and values
     att enco (2*Q*N*De) per video and role."""
     return 2.0 * b * (2.0 * q * n * dh + 2.0 * q * n * de)
+
+
+def de_splits(b: int, q: int, de: int, sms: int) -> int:
+    """How many blocks share the De columns of one query tile: the most, up
+    to MAX_SPLITS, that keep the grid of B x ceil(Q / 16) tiles within one
+    block an SM and leave each block at least MIN_SPLIT_COLUMNS columns.
+    Each of them recomputes the tile's logits (a third of the products at
+    De = 2 Dh)."""
+    tiles = b * -(-q // QUERY_TILE)
+    splits = 1
+    while (2 * splits <= MAX_SPLITS and 2 * splits * tiles <= sms
+           and de // (2 * splits) >= MIN_SPLIT_COLUMNS):
+        splits *= 2
+    return splits
 
 
 def role_attention_plain(pred2att, enti2att, enco, traj_mask, dim_enti: int):
@@ -55,9 +75,11 @@ def role_attention_plain(pred2att, enti2att, enco, traj_mask, dim_enti: int):
 def role_attention(pred2att, enti2att, enco, traj_mask, dim_enti: int):
     """Fused role attention in float32 (inputs are cast, as on the TPU).
 
-    Shapes as :func:`role_attention_plain`; returns float32 ``att`` and
-    ``values``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (and count the launch in ``role_attention.launches``).
+    Shapes as :func:`role_attention_plain`; views are taken as they are
+    (the decoder passes the halves of its projections, (B, 2, *, Dh) with
+    strides).  Returns float32 ``att`` and ``values``.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (and count the launch
+    in ``role_attention.launches``).
     """
     if not all(x.is_floating_point() for x in (pred2att, enti2att, enco)):
         raise TypeError("role_attention: p, e and enco must be floating "
@@ -68,7 +90,36 @@ def role_attention(pred2att, enti2att, enco, traj_mask, dim_enti: int):
     if pred2att.device.type != "cuda":
         raise ValueError(f"role_attention: unsupported device "
                          f"{pred2att.device}")
-    p, e, c = f32
+    return _launch(*f32, traj_mask, dim_enti)
+
+
+role_attention.launches = 0
+
+
+def _kernel_strides(name, x):
+    """The strides the kernel reads ``x`` (float32, card) through; raises
+    for a layout it cannot read.  It reads rows of float32 with unit stride
+    along the last dimension, a width and other strides that are multiples
+    of 4, 16-byte alignment, and one video's elements within 2^31 of its
+    first.  A dimension of size 1 has no stride to keep."""
+    strides = [s if n > 1 else 0 for n, s in zip(x.shape, x.stride())]
+    video = 1 + sum((n - 1) * s for n, s in zip(x.shape[1:], strides[1:]))
+    if (x.shape[-1] % 4 or (x.shape[-1] > 1 and strides[-1] != 1)
+            or any(s % 4 for s in strides[:-1]) or x.data_ptr() % 16
+            or video >= 2 ** 31):
+        raise ValueError(
+            f"role_attention: unsupported strides {tuple(x.stride())} of "
+            f"{name} {tuple(x.shape)}: the kernel reads rows of float32 "
+            "with unit stride along the last dimension, a width and other "
+            "strides that are multiples of 4, 16-byte alignment, and one "
+            "video's elements within 2^31 of its first")
+    return strides[:-1]
+
+
+def _launch(p, e, c, traj_mask, dim_enti: int, splits: int = 0, lib=None):
+    """Checks float32 card operands and launches the kernel of ``lib``
+    (default: this checkout's) with ``splits`` blocks a query tile (0:
+    :func:`de_splits`); counts the launch."""
     b, two, q, dh = p.shape
     n, de = e.shape[2], c.shape[2]
     if (two != 2 or e.shape != (b, 2, n, dh) or c.shape != (b, n, de)
@@ -78,43 +129,78 @@ def role_attention(pred2att, enti2att, enco, traj_mask, dim_enti: int):
                          f"{tuple(traj_mask.shape)} do not agree")
     if any(x.device != p.device for x in (e, c, traj_mask)):
         raise ValueError("role_attention: inputs lie on different devices")
-    if not all(x.is_contiguous() for x in f32):
-        raise ValueError("role_attention: inputs must be contiguous")
-    mask = traj_mask.to(torch.int32).contiguous()
+    strides = (_kernel_strides("p", p) + _kernel_strides("e", e)
+               + _kernel_strides("enco", c))
+    mask = traj_mask if traj_mask.dtype in (torch.bool, torch.uint8) else \
+        traj_mask != 0
     att = torch.empty((b, 2, q, n), dtype=torch.float32, device=p.device)
     values = torch.empty((b, 2, q, de), dtype=torch.float32, device=p.device)
     if b == 0 or q == 0:              # an empty grid cannot be launched
         return att, values
-    lib = _library()
+    lib = _library() if lib is None else lib
+    if lib.role_attn_smem_bytes(n, dh) > lib.role_attn_smem_limit():
+        raise ValueError(
+            f"role_attention: N={n} tracklets exceed the kernel's limit of "
+            f"{max_tracklets(lib, dh)} at Dh={dh} (the logits of 16 query "
+            f"rows stay in {lib.role_attn_smem_limit()} bytes of shared "
+            "memory)")
+    if splits <= 0:
+        splits = de_splits(b, q, de, _sms(p.device))
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.role_attn_forward(
+        err = lib.role_attn_launch(
             p.data_ptr(), e.data_ptr(), c.data_ptr(), mask.data_ptr(),
-            att.data_ptr(), values.data_ptr(), b, q, n, dh, de,
-            1.0 / math.sqrt(dim_enti), stream)
+            att.data_ptr(), values.data_ptr(), b, q, n, dh, de, *strides,
+            mask.stride(0), mask.stride(1), 1.0 / math.sqrt(dim_enti),
+            splits, stream)
     if err != 0:
         raise RuntimeError(
             f"role_attention kernel launch failed (N={n}, "
-            f"{lib.role_attn_smem_bytes(n)} B shared memory): "
+            f"{lib.role_attn_smem_bytes(n, dh)} B shared memory): "
             f"{lib.role_attn_error_string(err).decode()}")
     role_attention.launches += 1
     return att, values
 
 
-role_attention.launches = 0
+def max_tracklets(lib, dh: int) -> int:
+    """The largest N whose shared memory fits the card at width ``dh``."""
+    lo, hi = 0, 1 << 16
+    limit = lib.role_attn_smem_limit()
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if lib.role_attn_smem_bytes(mid, dh) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _sms(device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_count[index]
 
 
 def _library():
     from .build import load
 
-    lib = load("role_attn")
-    if lib.role_attn_forward.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.role_attn_forward.argtypes = [ptr] * 6 + [i32] * 5 + [
-            ctypes.c_float, ptr]
-        lib.role_attn_forward.restype = i32
-        lib.role_attn_smem_bytes.argtypes = [i32]
-        lib.role_attn_smem_bytes.restype = ctypes.c_longlong
+    return bind_library(load("role_attn"))
+
+
+def bind_library(lib):
+    """Declare the C signatures of a loaded role-attention library."""
+    if lib.role_attn_launch.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.role_attn_launch.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 10 + [
+            ctypes.c_float, i32, ptr]
+        lib.role_attn_launch.restype = i32
+        lib.role_attn_smem_bytes.argtypes = [i32, i32]
+        lib.role_attn_smem_bytes.restype = i64
+        lib.role_attn_smem_limit.argtypes = []
+        lib.role_attn_smem_limit.restype = i64
         lib.role_attn_error_string.argtypes = [i32]
         lib.role_attn_error_string.restype = ctypes.c_char_p
     return lib

@@ -48,12 +48,26 @@ Phases; any failure exits non-zero and prints no result line:
         with full-size synthetic videos (P=200 slots: R = 3,200 rows at
         batch 8), stopped after a step as on SIGTERM and resumed from its
         checkpoint;
+     e. the BIG-C train step (build_train_step) at bench.py's BIG-C train
+        geometry (bench.py:145-199): 8 videos at N=50 x T=256, 2048+832
+        features, Q=192, 2 + 6 layers, 16 GT trajectories and 32 predicate
+        slots, dropout 0.1: ms/step, videos/s, peak memory, the host ms of
+        the matching (cost copy + scipy) and of the loss, no role-attention
+        launch (train mode runs its plain version);
+     f. the train_vidvrd entry point on exp2 with 16 full-size synthetic
+        videos at batch 8: an uninterrupted run, and a run stopped after a
+        step as on SIGTERM and resumed from its checkpoint, whose losses
+        must equal the uninterrupted run's bit for bit;
+     g. the checkpoint of f served through eval_vidvrd --ckpt_path (8
+        videos, one batch: six role-attention launches);
      each in float32 and in bfloat16;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one train
      step's loss and gradients (R=64, T=512, dropout 0) on the card against
-     the CPU; the steady-state exp2 videos/s, the grounding inference
+     the CPU; one BIG-C train step (2 full-size videos, dropout 0) on the
+     card against the CPU: equal assignments, the loss terms and the
+     gradients; the steady-state exp2 videos/s, the grounding inference
      ms/video at that geometry and the two-stage videos/s;
   5. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
@@ -123,6 +137,17 @@ TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # at a batch whose float32 activations fit the card's 80 GB)
 ENTRY_RUNS = {"bfloat16": dict(videos=16, batch=8, stop_after=1),
               "float32": dict(videos=8, batch=4, stop_after=1)}
+# the BIG-C entry point: 16 full-size videos at batch 8, two steps
+BIGC_ENTRY_VIDEOS = 16
+# one BIG-C train step, card vs CPU: 2 full-size videos, float32 with no
+# TF32, dropout 0; the same tolerances as the grounding step's
+BIGC_PARITY_B = 2
+# ... and its encoder time max-pool: at most this share of the pool's bins
+# may pick another frame on the card than on the CPU, each only where the
+# CPU's values at the two picks lie within this much of the pool input's
+# largest magnitude (a tie within the devices' rounding)
+MAXPOOL_FLIP_SHARE = 1e-4
+MAXPOOL_TIE_RTOL = 1e-5
 
 
 def log(msg):
@@ -841,6 +866,332 @@ def drive_train_entry(card):
     return per_run, results
 
 
+def bigc_train_parts(dtype, **overrides):
+    """The exp2 model (random weights from eval_vidvrd's seed) and its
+    config at ``dtype``, on the CPU."""
+    from vidsgg_big_tpu_torch.models.big_c import BigCConfig
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    mc = dict(parse_config_py(EXP2_CFG)["model_config"], compute_dtype=dtype)
+    cfg = dataclasses.replace(BigCConfig.from_dict(mc), **overrides)
+    return eval_vidvrd.build_model(cfg, mc), cfg
+
+
+def time_bigc_loss(model, cfg, props, gts, reps=10):
+    """On one batch's train-mode outputs (no gradient): the host ms of the
+    matching (the cost's copy to the host, scipy, the assignment's copy
+    back; the card idle before it), the ms of the whole loss
+    (bigc_train_loss at the step's t_abs), and the loss's peak memory above
+    its inputs at the entry point's t_abs=4096, each the mean of ``reps``."""
+    from vidsgg_big_tpu_torch.ops.matching import hungarian
+    from vidsgg_big_tpu_torch.tools.train_vidvrd import T_ABS
+    from vidsgg_big_tpu_torch.train.losses import bigc_train_loss
+    from vidsgg_big_tpu_torch.train.loop import step_generator
+    with torch.no_grad():
+        out = model(props, generator=step_generator(2, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            total, _, (_, cost) = bigc_train_loss(out, props, gts, cfg)
+            total.item()
+        loss_ms = (time.perf_counter() - t0) * 1e3 / reps
+        n_gt = gts.pred_mask.sum(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            hungarian(cost, n_gt)
+        torch.cuda.synchronize()
+        match_ms = (time.perf_counter() - t0) * 1e3 / reps
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bigc_train_loss(out, props, gts, cfg, t_abs=T_ABS)[0].item()
+        loss_peak = torch.cuda.max_memory_allocated() - base
+    return match_ms, loss_ms, loss_peak
+
+
+def drive_bigc_train_step(card):
+    """Phase 3e: build_train_step on exp2 at bench.py's BIG-C train geometry
+    (B=8, N=50, T=256, 16 GT trajectories, 32 predicate slots), dropout 0.1,
+    float32 then bfloat16.  Returns ({dtype: {kernel: launches}}, {dtype:
+    result})."""
+    from vidsgg_big_tpu_torch.data.synthetic_vidvrd import bench_train_batch
+    from vidsgg_big_tpu_torch.train.loop import step_generator
+    from vidsgg_big_tpu_torch.train.steps import build_train_step
+    from vidsgg_big_tpu_torch.train.train_state import TrainState
+    per_run, results = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        model, cfg = bigc_train_parts(dtype)
+        model = model.cuda()
+        # bench.py's optimizer: Adam 1e-4, one milestone past the run
+        state = TrainState(model, 1e-4, 0.2, [10_000])
+        step = build_train_step(model, state)
+        batch = bench_train_batch(cfg, BATCH, "cuda", getattr(torch, dtype))
+        n_gt = batch[1].traj_mask.sum(-1).tolist()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_WARMUP):
+            step(*batch, generator=step_generator(1, i))["total"].item()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            metrics = step(*batch, generator=step_generator(
+                1, TRAIN_WARMUP + i))
+        loss = metrics["total"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        match_ms, loss_ms, loss_peak = time_bigc_loss(model, cfg, *batch)
+        log(f"BIG-C train step {dtype} exp2 B={BATCH} N=50 T=256 Q={Q} "
+            f"(GT trajectories {n_gt} in 16 slots): {ms} ms/step = "
+            f"{BATCH * 1e3 / ms} videos/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, loss {loss}, grad norm "
+            f"{metrics['grad_norm'].item()}; matching on the host {match_ms} "
+            f"ms ({100 * match_ms / ms:.1f}% of a step), the loss {loss_ms} "
+            f"ms, the loss's peak above its inputs at t_abs=4096 "
+            f"{loss_peak / 2 ** 20:.1f} MiB; launches {counts} on {card}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{dtype}: BIG-C train loss {loss}")
+        if any(counts.values()):
+            raise AssertionError(f"{dtype}: kernel launches {counts} in "
+                                 "train mode; role attention is plain there")
+        per_run[dtype] = counts
+        results[dtype] = dict(ms_per_step=ms, videos_per_s=BATCH * 1e3 / ms,
+                              peak_bytes=peak, loss=loss,
+                              matching_host_ms=match_ms, loss_ms=loss_ms,
+                              loss_peak_bytes=loss_peak)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    return per_run, results
+
+
+def drive_train_vidvrd(card):
+    """Phase 3f: the train_vidvrd entry point on exp2, 16 full-size videos
+    at batch 8 (two steps), float32 then bfloat16: one uninterrupted run,
+    and one stopped after a step as on SIGTERM and resumed from its
+    checkpoint; the resumed run's journal must equal the uninterrupted
+    one's bit for bit.  Returns ({dtype: {kernel: launches}}, {dtype:
+    checkpoint directory})."""
+    import shutil
+    from vidsgg_big_tpu_torch.tools import train_vidvrd
+    per_run, ckpts = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        out = os.path.join(OUT_DIR, f"train_vidvrd_{dtype}")
+        shutil.rmtree(out, ignore_errors=True)
+        base = ["--cfg_path", EXP2_CFG, "--synthetic",
+                str(BIGC_ENTRY_VIDEOS), "--synthetic_model_dims",
+                "--batch_size", str(BATCH), "--epochs", "1",
+                "--compute_dtype", dtype, "--device", "cuda"]
+        steps = BIGC_ENTRY_VIDEOS // BATCH
+        reset_counts()
+        t0 = time.perf_counter()
+        full = train_vidvrd.main(base + ["--output_dir", out + "/full"])
+        first = train_vidvrd.main(base + ["--output_dir", out + "/resumed",
+                                          "--stop_after_batches", "1"])
+        second = train_vidvrd.main(base + ["--output_dir", out + "/resumed",
+                                           "--from_checkpoint"])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        journals = {}
+        for run in ("full", "resumed"):
+            with open(os.path.join(out, run, "logfile",
+                                   "metrics.jsonl")) as f:
+                journals[run] = {r["step"]: r["value"]
+                                 for r in map(json.loads, f)
+                                 if r["tag"] == "loss/total"}
+        log(f"train_vidvrd {dtype} batch {BATCH}: uninterrupted losses "
+            f"{journals['full']}; stopped at step {first['step']}, resumed "
+            f"to {second['step']}: losses {journals['resumed']}; peak memory "
+            f"{full['max_memory_allocated'] / 2 ** 30:.2f} / "
+            f"{first['max_memory_allocated'] / 2 ** 30:.2f} / "
+            f"{second['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
+            f"{seconds:.1f} s for the three runs; launches {counts} on "
+            f"{card}")
+        if (full["step"], first["step"], second["step"]) != (steps, 1,
+                                                            steps):
+            raise AssertionError(f"{dtype}: steps {full['step']}, "
+                                 f"{first['step']}, {second['step']}")
+        if sorted(journals["full"]) != list(range(1, steps + 1)) or not all(
+                math.isfinite(v) for v in journals["full"].values()):
+            raise AssertionError(f"{dtype}: journal {journals['full']}")
+        if journals["resumed"] != journals["full"]:
+            raise AssertionError(f"{dtype}: the resumed run's losses "
+                                 f"{journals['resumed']} differ from the "
+                                 f"uninterrupted run's {journals['full']}")
+        if any(counts.values()):
+            raise AssertionError(f"{dtype}: kernel launches {counts} in "
+                                 "training")
+        per_run[dtype] = counts
+        ckpts[dtype] = full["ckpt_dir"]
+    return per_run, ckpts
+
+
+def serve_trained(card, ckpts):
+    """Phase 3g: each dtype's trained checkpoint served through
+    eval_vidvrd --ckpt_path at that dtype, 8 full-size videos in one batch.
+    Returns {dtype: {kernel: launches}}."""
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
+    per_run = {}
+    for dtype, ckpt in ckpts.items():
+        reset_counts()
+        res = eval_vidvrd.main([
+            "--cfg_path", EXP2_CFG, "--ckpt_path", ckpt, "--synthetic",
+            str(BATCH), "--synthetic_model_dims", "--batch_size", str(BATCH),
+            "--compute_dtype", dtype, "--feat_dtype", dtype, "--device",
+            "cuda", "--output_dir", OUT_DIR, "--metrics_json",
+            os.path.join(OUT_DIR, f"metrics_trained_{dtype}.json")])
+        counts = read_counts()
+        log(f"eval_vidvrd of the {dtype}-trained checkpoint {ckpt}: "
+            f"{json.dumps(res)}; launches {counts} on {card}")
+        if counts["role_attention"] != n_deco * res["n_batches"] or \
+                res["n_batches"] != 1:
+            raise AssertionError(
+                f"{dtype}: {counts['role_attention']} role-attention "
+                f"launches for {res['n_batches']} forwards, expected "
+                f"{n_deco} each")
+        if not math.isfinite(res["mAP"]) or res["n_relations"] == 0:
+            raise AssertionError(f"{dtype}: mAP {res['mAP']}, "
+                                 f"{res['n_relations']} relations")
+        per_run[dtype] = counts
+    return per_run
+
+
+def amax_routing(x, out_len):
+    """How torch.amax's backward spreads each bin's gradient over the bin
+    (adaptive_max_pool1d over the time axis of x (n, L, E), L a multiple of
+    out_len): 1 / #maxima at each maximum, 0 elsewhere; (n, out_len,
+    L / out_len, E)."""
+    n, length, e = x.shape
+    b = x.reshape(n, out_len, length // out_len, e)
+    top = b == b.amax(2, keepdim=True)
+    return top / top.sum(2, keepdim=True)
+
+
+def routed_max_pool(routing, seen):
+    """adaptive_max_pool1d with the forward of torch.amax and a backward
+    that spreads each bin's gradient by ``routing`` (amax_routing of
+    another run); the pooled input is appended to ``seen``."""
+    def pool(x, out_len, axis=-2):
+        seen.append(x.detach())
+        n, length, e = x.shape
+        b = x.reshape(n, out_len, length // out_len, e)
+        return b.detach().amax(2) + ((b - b.detach()) * routing).sum(2)
+    return pool
+
+
+def check_bigc_train_parity():
+    """Phase 4 (BIG-C training): one train step's loss and gradients on the
+    card against the port's CPU run on the same weights and batch (2
+    full-size videos at bench.py's train geometry, float32, dropout 0):
+    the assignments must be equal, the loss terms within TRAIN_LOSS_RTOL,
+    every gradient within TRAIN_GRAD_TOL of its leaf's scale.  Where an
+    assignment differs, the two solutions' costs under the CPU's cost
+    matrix are printed before the failure.
+
+    The tracklet encoder's time max-pool picks one of 32 frames per bin
+    and channel; where two frames' values lie within the two devices'
+    rounding (a few 1e-6), the card may pick the other, and the gradients
+    below the pool then differ by a whole frame's contribution (a few
+    bins in 10^5 on an H100, moving conv_feat2enti.weight's gradient by
+    about 1% of its scale).  So the card's backward spreads each bin's gradient as the CPU's torch.amax
+    does (routed_max_pool; the forward is the card's own amax), and the
+    card's own picks are held apart: at most MAXPOOL_FLIP_SHARE of the bins
+    may differ from the CPU's, each a tie within MAXPOOL_TIE_RTOL of the
+    pool input's scale on the CPU's values."""
+    from vidsgg_big_tpu_torch.models import big_c
+    from vidsgg_big_tpu_torch.data.synthetic_vidvrd import bench_train_batch
+    from vidsgg_big_tpu_torch.train.losses import bigc_train_loss
+    model, cfg = bigc_train_parts("float32", dropout=0.0)
+    batch = bench_train_batch(cfg, BIGC_PARITY_B, "cpu", torch.float32,
+                              seed0=20)
+    pooled, real_pool = [], big_c.adaptive_max_pool1d
+
+    def run(m, props, gts, pool):
+        big_c.adaptive_max_pool1d = pool
+        try:
+            m.train()
+            m.zero_grad()
+            # at build_train_step's default t_abs, as phase 3e
+            total, terms, (q4g, cost) = bigc_train_loss(m(props), props,
+                                                        gts, cfg)
+            total.backward()
+        finally:
+            big_c.adaptive_max_pool1d = real_pool
+        return ({k: v.item() for k, v in dict(terms, total=total).items()},
+                {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                q4g.cpu(), cost.cpu())
+
+    def seen_pool(x, out_len, axis=-2):
+        pooled.append(x.detach())
+        return real_pool(x, out_len, axis)
+    t0 = time.perf_counter()
+    cpu_terms, cpu_grads, cpu_q, cpu_cost = run(model, *batch, seen_pool)
+    seconds = time.perf_counter() - t0
+    routing = amax_routing(pooled[0], cfg.enco_pool_len)
+    reset_counts()
+    dev = [type(x)(**{k: v.cuda() for k, v in vars(x).items()})
+           for x in batch]
+    gpu_terms, gpu_grads, gpu_q, gpu_cost = run(
+        copy.deepcopy(model).cuda(), *dev,
+        routed_max_pool(routing.cuda(), pooled))
+    counts = read_counts()
+    own = amax_routing(pooled[1].cpu(), cfg.enco_pool_len)
+    flipped = (own != routing).any(2)
+    flips, bins = int(flipped.sum()), flipped.numel()
+    # the CPU's max of each bin less its least value among the card's picks
+    x = pooled[0].reshape(routing.shape)
+    gap = (x.amax(2) - torch.where(own > 0, x, math.inf).amin(2)).max()
+    scale = pooled[0].abs().max().item()
+    log(f"BIG-C encoder max-pool: {flips} of {bins} bins route their "
+        "gradient differently on the card than on the CPU (the card's "
+        "backward takes the CPU's routing); the widest gap between the "
+        f"CPU's values at the two picks {gap.item()}, max |pool input| "
+        f"{scale}, max |pool input card - CPU| "
+        f"{(pooled[1].cpu() - pooled[0]).abs().max().item()}")
+    if flips > MAXPOOL_FLIP_SHARE * bins or \
+            gap.item() > MAXPOOL_TIE_RTOL * scale:
+        raise AssertionError(
+            f"the card's max-pool picks another frame in {flips} of {bins} "
+            f"bins (at most {MAXPOOL_FLIP_SHARE * bins:.0f}), with a gap up "
+            f"to {gap.item()} (at most {MAXPOOL_TIE_RTOL * scale}) on the "
+            "CPU's values")
+    if any(counts.values()):
+        raise AssertionError(f"BIG-C train step launches {counts}")
+    log(f"BIG-C train step on the CPU ({seconds:.1f} s) and the card: loss "
+        f"terms {cpu_terms} / {gpu_terms}; max |cost| diff "
+        f"{(cpu_cost - gpu_cost).abs().max().item()}")
+    if not torch.equal(cpu_q, gpu_q):
+        for name, q in (("CPU", cpu_q), ("card", gpu_q)):
+            total = sum(cpu_cost[b, qq, p].item()
+                        for b in range(q.shape[0])
+                        for p, qq in enumerate(q[b].tolist()) if qq >= 0)
+            log(f"the {name}'s assignment {q.tolist()} costs {total} under "
+                "the CPU's cost")
+        raise AssertionError("the card's assignment differs from the CPU's")
+    worst = (0.0, None)
+    for k, g in cpu_grads.items():
+        if not (torch.isfinite(g).all() and torch.isfinite(
+                gpu_grads[k]).all()):
+            raise AssertionError(f"non-finite gradient {k}")
+        scale = g.abs().max().item()
+        err = (gpu_grads[k] - g).abs().max().item()
+        worst = max(worst, (err / max(scale, 1e-12), k))
+        if err > TRAIN_GRAD_TOL * scale + 1e-6:
+            raise AssertionError(f"gradient {k}: max |card - CPU| {err}, "
+                                 f"max |CPU| {scale}")
+    for name, v in cpu_terms.items():
+        if abs(gpu_terms[name] - v) > TRAIN_LOSS_RTOL * abs(v):
+            raise AssertionError(f"loss {name}: card {gpu_terms[name]}, "
+                                 f"CPU {v}")
+    log(f"BIG-C train step card vs CPU: equal assignments "
+        f"({int((cpu_q >= 0).sum())} pairs), worst gradient leaf max |diff| "
+        f"/ max |g| = {worst[0]} ({worst[1]})")
+    return worst[0]
+
+
 def check_train_parity():
     """Phase 4 (training): one train step (R = 2 videos x 2 x 16 slots =
     64 rows, T=512, dropout 0, the same Gumbel draw) on the card against
@@ -1076,6 +1427,9 @@ def main(argv=None):
     by_path["vidor_two_stage"], vidor = drive_vidor()
     by_path["grounding_train_step"], train = drive_train_step(card)
     by_path["train_vidor"], _ = drive_train_entry(card)
+    by_path["bigc_train_step"], bigc_train = drive_bigc_train_step(card)
+    by_path["train_vidvrd"], ckpts = drive_train_vidvrd(card)
+    by_path["eval_trained_checkpoint"] = serve_trained(card, ckpts)
     # role attention runs in float32 under both compute dtypes; each
     # composed row counts the launches of its dtype's runs
     rows_of = {"role_attention": ("role_attention", ("float32", "bfloat16"))}
@@ -1096,6 +1450,7 @@ def main(argv=None):
             raise AssertionError(f"{k['name']}: no launch on any path")
     check_outputs(card)
     check_train_parity()
+    check_bigc_train_parity()
     ms_per_video = check_grounding(card)
     for dtype, res in vidor.items():
         seconds = res["stage_a_seconds"] + res["stage_b_seconds"]
@@ -1108,6 +1463,11 @@ def main(argv=None):
         log(f"grounding training {dtype}: {res['ms_per_step']} ms/step, "
             f"{res['videos_per_s']} videos/s at B={TR_B} P={TR_P} T={G_T}, "
             f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB; {card}")
+    for dtype, res in bigc_train.items():
+        log(f"BIG-C training {dtype}: {res['ms_per_step']} ms/step, "
+            f"{res['videos_per_s']} videos/s at exp2 B={BATCH} N=50 T=256, "
+            f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB, matching on the "
+            f"host {res['matching_host_ms']} ms a step; {card}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from vidsgg_big_tpu.models import BigC as JaxBigC, BigCConfig as JaxBigCConfig
 from vidsgg_big_tpu.train.steps import build_infer_step as jax_infer_step
 from vidsgg_big_tpu.utils.config import parse_config_py
 
+from vidsgg_big_tpu_torch.data import synthetic_vidvrd
 from vidsgg_big_tpu_torch.evaluation import metrics as torch_metrics
 from vidsgg_big_tpu_torch.models.big_c import BigCConfig
 from vidsgg_big_tpu_torch.models.transplant import bigc_state_dict_from_jax
@@ -50,12 +51,12 @@ def _jax_eval(model, params):
     metrics, on the records the port CLI draws."""
     topk = parse_config_py(CFG_PATH)["inference_config"]["topk"]
     infer = jax_infer_step(model, topk=topk)
-    recs = [make_video(i, feat_dim=sum(eval_vidvrd.SMALL_DIMS))
+    recs = [make_video(i, feat_dim=sum(synthetic_vidvrd.SMALL_DIMS))
             for i in range(N_VIDEOS)]
     cvt = JaxCvtor("vidvrd")
     pred, gt = {}, {}
     for _, rows, props, _ in jax_batches(
-            recs, JaxBucketSpec(feat_dim=sum(eval_vidvrd.SMALL_DIMS)), BATCH,
+            recs, JaxBucketSpec(feat_dim=sum(synthetic_vidvrd.SMALL_DIMS)), BATCH,
             with_gt=False):
         trip = jax.device_get(infer(params, props))
         for i, (p, g) in enumerate(rows):

@@ -52,6 +52,13 @@ class BigCConfig:
     use_clsme: bool = True        # v7 only: include classeme in the head
     use_name_emb: bool = True     # v7: True -> EntiNameEmb lookup,
     #                               False -> per-frame classeme channels
+    # training (train/losses.py)
+    neg_weight: float = 0.1
+    positive_viou_th: float = 0.5
+    cost_coeff_cls: float = 1.0
+    cost_coeff_adj: float = 30.0
+    loss_coeff_cls: float = 1.0
+    loss_coeff_adj: float = 30.0
     # dtype of the per-frame encoder matmuls (params stay float32)
     compute_dtype: str = "float32"
 
@@ -67,9 +74,11 @@ class BigCConfig:
 
     @classmethod
     def from_dict(cls, d: dict, variant: str = "v10"):
-        """Build from a reference-style ``model_config`` dict (same keys;
-        the training keys wait for the training slice).  v7 reads the name
-        embeddings only when the config names their file."""
+        """Build from a reference-style ``model_config`` dict (same keys,
+        the loss weights included).  v7 reads the name embeddings only when
+        the config names their file."""
+        cost = d.get("cost_coeff_dict", {})
+        loss = d.get("loss_coeff_dict", {})
         return cls(
             num_pred_cats=d["num_pred_cats"],
             num_enti_cats=d["num_enti_cats"],
@@ -85,6 +94,12 @@ class BigCConfig:
             use_clsme=d.get("use_clsme", True),
             use_name_emb=(d.get("EntiNameEmb_path") is not None
                           if variant == "v7" else True),
+            neg_weight=d.get("neg_weight", 0.1),
+            positive_viou_th=d.get("positive_vIoU_th", 0.5),
+            cost_coeff_cls=cost.get("classification", 1.0),
+            cost_coeff_adj=cost.get("adj_matrix", 30.0),
+            loss_coeff_cls=loss.get("classification", 1.0),
+            loss_coeff_adj=loss.get("adj_matrix", 30.0),
             compute_dtype=d.get("compute_dtype", "float32"),
         )
 
@@ -232,9 +247,10 @@ class BigC(TrackletEncoder):
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
 
-    def forward(self, batch: TrackletBatch):
+    def forward(self, batch: TrackletBatch, generator=None):
         """Returns dict with pred_queries (B,Q,Dp), pred_logits (B,Q,C),
-        att (B,2,Q,N) float32, enti_feat (B,N,E)."""
+        att (B,2,Q,N) float32, enti_feat (B,N,E).  In train mode every
+        dropout draws from ``generator`` (see ``ops.attention.dropout``)."""
         cfg = self.cfg
         consumed = (cfg.dim_i3d or 0) + (
             cfg.dim_clsme if cfg.clsme_in_feats else 0)
@@ -253,7 +269,7 @@ class BigC(TrackletEncoder):
         mask = batch.traj_mask
         out = enti2enco
         for layer in self.encoder_layers:
-            out = layer(out, key_mask=mask)
+            out = layer(out, key_mask=mask, generator=generator)
         enco_output = out                                     # (B, N, E)
 
         bsz = enti2enco.shape[0]
@@ -261,7 +277,7 @@ class BigC(TrackletEncoder):
         att = None
         for layer in self.decoder_layers:
             pred_queries, att = layer(pred_queries, self.pos_embedding,
-                                      enco_output, mask)
+                                      enco_output, mask, generator)
 
         extra_avg = None
         if consumed:
@@ -285,9 +301,13 @@ class BigC(TrackletEncoder):
             cat_ids[:, None, :].expand(-1, 2, -1), -1, pred_soid).long()
         pred_bias = self.bias_matrix[pred_socat[:, 0], pred_socat[:, 1]]
 
+        rows = torch.arange(att.shape[0], device=att.device)[:, None]
+
         def gather_traj(x, ids):                      # (B, N, D) -> (B, Q, D)
-            return torch.gather(x, 1, ids[..., None].expand(
-                -1, -1, x.shape[-1]))
+            # an index, not torch.gather: on the card its backward sums the
+            # duplicate rows in a fixed order (gather's scatter_add does
+            # not), so a train step is bit-reproducible
+            return x[rows, ids]
 
         sub_feat = gather_traj(enti_feat, pred_soid[:, 0])
         obj_feat = gather_traj(enti_feat, pred_soid[:, 1])

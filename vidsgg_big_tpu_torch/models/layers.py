@@ -5,7 +5,10 @@ parameter names and layouts (reference models/model_0v10.py:70-225):
 ``nn.Sequential`` MLPs indexed 0, 2, ...; a packed ``in_proj_weight``
 (3D, D) and ``out_proj`` per attention; LayerNorm ``weight``/``bias`` with
 flax's epsilon of 1e-6.  Every layer takes a (B, ...) batch with validity
-masks, so a whole bucket of videos is one call.
+masks, so a whole bucket of videos is one call.  In train mode every
+dropout (JAX ``models/layers.py:142, 164-172, 239``) draws from the
+``generator`` handed to the forward, never from torch's global stream, so a
+step's randomness is a function of that generator alone.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import dropout
 from ..ops.role_attn import role_attention, role_attention_plain
 
 LN_EPS = 1e-6      # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -63,6 +67,22 @@ class MLP(nn.Sequential):
         return x
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` as a module (:func:`ops.attention.dropout`): the
+    mask comes from the ``generator`` given to ``forward``; the identity in
+    eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        return dropout(x, self.p, generator, self.training)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with key-padding masking, written out by hand.
 
@@ -79,7 +99,7 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, q, k, v, key_mask=None):
+    def forward(self, q, k, v, key_mask=None, generator=None):
         # q: (B, Lq, D); k, v: (B, Lk, D); key_mask: (B, Lk) bool (True=valid)
         h, d = self.num_heads, self.dim
         hd = d // h
@@ -97,7 +117,7 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1)
         if key_mask is not None:
             attn = attn.masked_fill(~valid, 0.0)
-        attn = F.dropout(attn, self.dropout, self.training)
+        attn = dropout(attn, self.dropout, generator, self.training)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
         return self.out_proj(out.reshape(*out.shape[:-2], d))
 
@@ -115,10 +135,11 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.dropout = dropout
 
-    def forward(self, src, key_mask=None, pos=None):
-        drop = lambda x: F.dropout(x, self.dropout, self.training)
+    def forward(self, src, key_mask=None, pos=None, generator=None):
+        drop = lambda x: dropout(x, self.dropout, generator, self.training)
         qk = src if pos is None else src + pos
-        src = self.norm1(src + drop(self.self_attn(qk, qk, src, key_mask)))
+        src = self.norm1(src + drop(self.self_attn(qk, qk, src, key_mask,
+                                                   generator)))
         src2 = self.linear2(drop(F.relu(self.linear1(src))))
         return self.norm2(src + drop(src2))
 
@@ -147,15 +168,18 @@ class RoleAttnDecoderLayer(nn.Module):
             MLP(dim_enti, (dim_pred, dim_pred), final_relu=False)
             for _ in range(2))
         self.norm2 = nn.LayerNorm(dim_pred, eps=LN_EPS)
+        # the reference's Sequential (Linear, ReLU, Dropout, Linear): its
+        # parameters stay fc2.0 and fc2.3
         self.fc2 = nn.Sequential(nn.Linear(dim_pred, dim_ffn), nn.ReLU(),
-                                 nn.Dropout(dropout),
+                                 Dropout(dropout),
                                  nn.Linear(dim_ffn, dim_pred))
         self.norm3 = nn.LayerNorm(dim_pred, eps=LN_EPS)
 
-    def forward(self, pred_query, pos_emb, enco_output, traj_mask):
+    def forward(self, pred_query, pos_emb, enco_output, traj_mask,
+                generator=None):
         # pred_query: (B, Q, Dp); pos_emb: (Q, Dp); enco_output: (B, N, De)
         qk = pred_query + pos_emb[None]
-        pq2 = self.self_attn(qk, qk, pred_query)
+        pq2 = self.self_attn(qk, qk, pred_query, generator=generator)
         pred_query = self.norm1(pred_query + pq2)
 
         pred_query = pred_query + pos_emb[None]
@@ -170,5 +194,7 @@ class RoleAttnDecoderLayer(nn.Module):
         role_q = (self.fc_rolewise[0](values[:, 0])
                   + self.fc_rolewise[1](values[:, 1]))
         pred_query = self.norm2(pred_query + role_q)
-        pred_query = self.norm3(pred_query + self.fc2(pred_query))
+        lin1, relu, drop, lin2 = self.fc2
+        ffn = lin2(drop(relu(lin1(pred_query)), generator))
+        pred_query = self.norm3(pred_query + ffn)
         return pred_query, att

@@ -10,7 +10,10 @@ the records' own graphs, the reference's *_our_gt.py path).  Run as
 
 This slice reads no dataset from disk: ``--synthetic N`` draws N in-memory
 records from ``data/synthetic.make_video``, as bench.py does.  Reading the
-on-disk VidVRD splits is a later slice of the port.
+on-disk VidVRD splits is a later slice of the port.  ``--ckpt_path`` takes a
+reference-named ``state_dict`` file or the checkpoint directory of
+``tools/train_vidvrd`` (its newest ``ckpt_*.pt``), as the JAX CLI serves
+its trainer's checkpoints.
 """
 from __future__ import annotations
 
@@ -23,39 +26,26 @@ import numpy as np
 import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches
-from ..data.synthetic import make_video
+from ..data.synthetic_vidvrd import (FULL_SIZE_BUCKETS,
+                                     SyntheticVidVRDSet)
 from ..evaluation.convert import EvalFmtCvtor
 from ..evaluation.metrics import eval_relation_with_gt
 from ..models.big_c import BigC, BigCConfig, load_bias_matrix
 from ..models.transplant import strip_module_prefix
 from ..train.steps import build_infer_step
+from ..train.train_state import checkpoint_steps
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
 from ..utils.logger import create_logger
 
-# bench.py's full-size record recipe and serving geometry (bench.py:22-24,
-# 79-87): 12 GT + 34 distractor tracklets per 480-frame video, packed at
-# N=50 tracklets x T=256 frames
-FULL_SIZE_RECIPE = dict(video_len=480, n_gt_trajs=12, n_preds=16,
-                        n_distractors=34)
-FULL_SIZE_BUCKETS = dict(n_ladder=(50,), t_ladder=(256,))
-# feature widths without --synthetic_model_dims (the JAX CLIs' synthetic
-# default: 64 RoI + 16 I3D channels)
-SMALL_DIMS = (64, 16)
 # seed of the random weights when no checkpoint is given
 WEIGHT_SEED = 0
 
 
 def synthetic_records(n_videos: int, cfg: BigCConfig, model_dims: bool):
     """(proposal, GT) records, generated lazily, and their feature width."""
-    if model_dims:
-        feat, recipe = cfg.dim_feat + (cfg.dim_i3d or 0), FULL_SIZE_RECIPE
-    else:
-        feat, recipe = sum(SMALL_DIMS), {}
-    records = (make_video(i, feat_dim=feat, num_enti_cats=cfg.num_enti_cats,
-                          num_pred_cats=cfg.num_pred_cats, **recipe)
-               for i in range(n_videos))
-    return records, feat
+    data = SyntheticVidVRDSet(n_videos, cfg, model_dims)
+    return (data[i] for i in range(n_videos)), data.feat_dim
 
 
 def _table(path, shape):
@@ -68,19 +58,34 @@ def _table(path, shape):
     return np.zeros(shape, np.float32)
 
 
-def build_model(cfg: BigCConfig, model_config: dict, ckpt_path=None) -> BigC:
-    """BigC on the CPU: random weights from ``WEIGHT_SEED`` and the config's
-    tables, or a reference-named checkpoint (``module.`` prefixes
-    stripped)."""
+def load_state(ckpt_path: str) -> dict:
+    """The model ``state_dict`` at ``ckpt_path``: a reference-named file
+    (``module.`` prefixes stripped), or a ``tools/train_vidvrd`` checkpoint
+    directory, whose newest ``ckpt_*.pt`` holds it under ``model``."""
+    if os.path.isdir(ckpt_path):
+        steps = checkpoint_steps(ckpt_path)
+        if not steps:
+            raise FileNotFoundError(f"no ckpt_*.pt in {ckpt_path}")
+        ckpt_path = os.path.join(ckpt_path, f"ckpt_{steps[-1]}.pt")
+        return torch.load(ckpt_path, map_location="cpu",
+                          weights_only=True)["model"]
+    sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    return strip_module_prefix(sd)
+
+
+def build_model(cfg: BigCConfig, model_config: dict, ckpt_path=None,
+                seed: int = WEIGHT_SEED) -> BigC:
+    """BigC on the CPU: random weights from ``seed`` and the config's name
+    and bias tables (zeros where their files are absent), or the weights of
+    a checkpoint (:func:`load_state`)."""
     e, c = cfg.num_enti_cats, cfg.num_pred_cats
     model = BigC(cfg, enti_name_emb=_table(model_config.get(
         "EntiNameEmb_path"), (e, cfg.dim_clsme)),
-        generator=torch.Generator().manual_seed(WEIGHT_SEED))
+        generator=torch.Generator().manual_seed(seed))
     load_bias_matrix(model, _table(model_config.get("bias_matrix_path"),
                                    (e, e, c)))
     if ckpt_path:
-        sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(strip_module_prefix(sd), strict=True)
+        model.load_state_dict(load_state(ckpt_path), strict=True)
     return model
 
 
@@ -161,8 +166,10 @@ def parse_args(argv=None):
     parser.add_argument("--cfg_path", type=str, required=True)
     parser.add_argument("--ckpt_path", type=str, default=None,
                         help="torch state_dict in the reference parameter "
-                             "names ('module.' prefixes are stripped); "
-                             "default: random weights from a fixed seed")
+                             "names ('module.' prefixes are stripped), or a "
+                             "train_vidvrd checkpoint directory (its newest "
+                             "ckpt_*.pt); default: random weights from a "
+                             "fixed seed")
     parser.add_argument("--output_dir", type=str, default=None,
                         help="log and result directory (default: the "
                              "config's directory)")

@@ -2,7 +2,8 @@
 card.
 
     python -m vidsgg_big_tpu_torch.tools.profile_infer \\
-        [--model bigc|grounding|grounding_train] [--compute_dtype bfloat16] \\
+        [--model bigc|grounding|grounding_train|bigc_train] \\
+        [--compute_dtype bfloat16] \\
         [--out k.json]
 
 ``--model bigc`` (default) builds the exp2 model with random weights (as
@@ -14,8 +15,12 @@ bench.py's geometry (B=4 videos x Q=256 queries x T=512 clips, 299 valid).
 ``--model grounding_train`` builds the same model and times the train step
 (loss, backward, clip, Adam; dropout 0.1) at bench.py's train geometry: 8
 full-size synthetic videos x 64 predicate slots x T=512 (R=1024 rows in the
-combined encoder).  Each runs 10 steps under ``torch.profiler`` and prints
-one JSON line:
+combined encoder).  ``--model bigc_train`` times the BIG-C train step
+(forward, vIoU alignment, matching on the host, losses, backward, clip,
+Adam; dropout 0.1) of the exp2 model at bench.py's BIG-C train geometry: 8
+full-size videos at N=50 x T=256, 16 GT trajectories and 32 predicate
+slots.  Each runs 10 steps under ``torch.profiler`` and prints one JSON
+line:
 milliseconds per batch (CUDA events), the device's busy share of that
 window (kernel time over window time) and the kernels with the most device
 time, each with its share and launches per batch.  The full kernel table
@@ -31,12 +36,13 @@ import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches
 from ..data.synthetic import clip_features, make_vidor_video, num_clips
+from ..data.synthetic_vidvrd import bench_train_batch
 from ..models.big_c import BigCConfig
 from ..models.grounding import GroundingConfig
 from ..train.grounding_steps import (build_grounding_infer_step,
                                      build_grounding_train_step)
 from ..train.loop import step_generator
-from ..train.steps import build_infer_step
+from ..train.steps import build_infer_step, build_train_step
 from ..train.train_state import TrainState
 from ..utils.config import parse_config_py
 from ..utils.device import card_name_and_power, resolve_device, strict_float32
@@ -115,12 +121,27 @@ def _grounding_train_step(compute_dtype, device):
         TR_B
 
 
+def _bigc_train_step(compute_dtype, device):
+    mc = dict(parse_config_py(CFG_PATH)["model_config"],
+              compute_dtype=compute_dtype)
+    cfg = BigCConfig.from_dict(mc)
+    model = eval_vidvrd.build_model(cfg, mc).to(device)
+    # bench.py's optimizer: Adam 1e-4, one milestone past the run
+    step = build_train_step(model, TrainState(model, 1e-4, 0.2, [10_000]))
+    batch = bench_train_batch(cfg, BATCH, device,
+                                           getattr(torch, compute_dtype))
+    it = iter(range(1 << 30))
+    return (lambda: step(*batch, generator=step_generator(1, next(it)))), \
+        BATCH
+
+
 def profile(compute_dtype: str, model: str = "bigc"):
     """(summary, [(device ms, launches, kernel name)]) over ITERS batches."""
     device = resolve_device("cuda")
     strict_float32()
     step, batch = {"bigc": _bigc_step, "grounding": _grounding_step,
-                   "grounding_train": _grounding_train_step}[model](
+                   "grounding_train": _grounding_train_step,
+                   "bigc_train": _bigc_train_step}[model](
         compute_dtype, device)
     for _ in range(3):
         step()
@@ -138,8 +159,11 @@ def profile(compute_dtype: str, model: str = "bigc"):
     window_ms = start.elapsed_time(end)
     rows = []
     for ev in prof.key_averages():
+        # a user annotation (the optimizer's "Optimizer.step#Adam.step")
+        # spans kernels that are counted on their own
         if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.self_device_time_total > 0):
+                and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)):
             rows.append((ev.self_device_time_total / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     kernel_ms = sum(r[0] for r in rows)
@@ -160,7 +184,8 @@ def profile(compute_dtype: str, model: str = "bigc"):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="bigc",
-                        choices=("bigc", "grounding", "grounding_train"))
+                        choices=("bigc", "grounding", "grounding_train",
+                                 "bigc_train"))
     parser.add_argument("--compute_dtype", default="float32",
                         choices=("float32", "bfloat16"))
     parser.add_argument("--out", default=None,

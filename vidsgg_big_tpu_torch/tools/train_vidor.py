@@ -29,6 +29,7 @@ import torch
 
 from ..data.bucketing import iter_shuffled, pick_unbounded, stream_buckets
 from ..data.synthetic import clip_features, make_vidor_video
+from ..data.transfer import to_device, wire_dtype
 from ..data.types import pack_gt, stack_batches
 from ..models.grounding import GroundingConfig, GroundingModel
 from ..train.grounding_steps import build_grounding_train_step
@@ -65,15 +66,6 @@ class SyntheticGroundingSet:
         return clip_features(i, gt.video_len, self.dim_feat), gt
 
 
-def _wire_dtype(args, cfg) -> torch.dtype:
-    """Feature dtype of a train batch (``--feat_dtype``; by default bf16
-    under bf16 compute, whose cast rounds as the model's own)."""
-    if args.feat_dtype:
-        return getattr(torch, args.feat_dtype)
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
-        torch.float32
-
-
 def make_batch(rows, t_bucket: int, n_real: int, dim_feat: int,
                p_bucket: int, wire: torch.dtype):
     """rows: [(clip features, GT)] padded to the batch size by repeats of
@@ -105,14 +97,10 @@ def make_batch(rows, t_bucket: int, n_real: int, dim_feat: int,
 
 def _to_device(batch, device):
     """H2D of one batch: pinned and non-blocking on the card."""
-    def move(x):
-        if device.type == "cuda":
-            return x.pin_memory().to(device, non_blocking=True)
-        return x.to(device)
     feats, clip_mask, n_clips, gts, video_len = batch
-    gts = type(gts)(**{k: move(v) for k, v in vars(gts).items()})
-    return (move(feats), move(clip_mask), move(n_clips), gts,
-            move(video_len))
+    gts = type(gts)(**{k: to_device(v, device) for k, v in vars(gts).items()})
+    return (to_device(feats, device), to_device(clip_mask, device),
+            to_device(n_clips, device), gts, to_device(video_len, device))
 
 
 def train_grounding_stage(args) -> dict:
@@ -150,7 +138,7 @@ def train_grounding_stage(args) -> dict:
     state = TrainState(model, train_config["initial_lr"],
                        train_config["lr_decay"], milestones)
     p_bucket = mc.get("max_preds", 200)
-    wire = _wire_dtype(args, cfg)
+    wire = wire_dtype(args.feat_dtype, cfg.compute_dtype)
 
     def epoch_batches(epoch, skip=0):
         gen = stream_buckets(iter_shuffled(dataset, seed=epoch),

@@ -14,7 +14,9 @@ Port of the JAX package's ``train/loop.py``:
   so a resumed run draws what an uninterrupted run would.
 * **Lagged metric fetch**: step N-1's loss is read (``.item()``, which
   waits for the card) after step N is dispatched; per-step ``loss/total``
-  and ``time/step_ms`` go to metrics.jsonl at full float precision.
+  and ``time/step_ms`` go to metrics.jsonl at full float precision, and
+  every ``JOURNAL_EVERY`` steps the ``extra_metrics`` keys as
+  ``loss/<key>``.
 * **Overlapped H2D**: ``preput`` moves batch N+1 to the card (pinned,
   non-blocking) after step N is dispatched.
 """
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import signal
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +68,7 @@ def run_epochs(state: TrainState, run_step, epoch_stream, *,
                start_epoch: int, total_epoch: int, base_seed: int, writer,
                logger, ckpt_dir: str, ckpt_every: int,
                start_batch: int = 0,
+               extra_metrics: Sequence[str] = (),
                should_stop: Optional[Callable[[], bool]] = None,
                preput: Optional[Callable] = None,
                stop_after_batches: int = 0) -> TrainState:
@@ -79,6 +82,9 @@ def run_epochs(state: TrainState, run_step, epoch_stream, *,
         only on the first (resumed) epoch, whose deterministic stream the
         implementation fast-forwards by that many batches.
       start_batch: batches already consumed in ``start_epoch`` (sidecar).
+      extra_metrics: metric keys journaled (``loss/<key>``) and logged every
+        ``JOURNAL_EVERY`` steps, on the lagged read, before the step's
+        learning rate.
       preput: optional ``batch -> batch`` (the H2D copy), run one batch
         ahead of its step.
       stop_after_batches: test hook: behave as if SIGTERM arrived after
@@ -103,8 +109,13 @@ def run_epochs(state: TrainState, run_step, epoch_stream, *,
         writer.add_scalar("time/step_ms", (now - t_prev[0]) * 1000.0, p_it)
         t_prev[0] = now
         if p_it % JOURNAL_EVERY == 0:
-            logger.info(f"epoch {p_epoch} it {p_it} loss {loss:.4f} "
-                        f"lr {state.lr(p_it - 1):.3g}")
+            parts = []
+            for k in extra_metrics:
+                v = float(m[k])
+                writer.add_scalar(f"loss/{k}", v, p_it)
+                parts.append(f" {k}={v:.4f}")
+            logger.info(f"epoch {p_epoch} it {p_it} loss {loss:.4f}"
+                        + "".join(parts) + f" lr {state.lr(p_it - 1):.3g}")
 
     for epoch in range(start_epoch, total_epoch):
         t0 = time.time()

@@ -61,13 +61,38 @@ Phases; any failure exits non-zero and prints no result line:
      g. the checkpoint of f served through eval_vidvrd --ckpt_path (8
         videos, one batch: six role-attention launches);
      each in float32 and in bfloat16;
+     h. exp2's int8 serving path through eval_vidvrd --feat_dtype int8
+        (16 videos at batch 8, float32 compute: six role-attention
+        launches a forward);
+     i. VidOR classification training, BIG-C v7 on exp4: the train step
+        (build_train_step at t_abs=4096, dropout 0.1) on 4 full-size videos
+        at (N=64, T=4096) (ms/step, videos/s, peak memory), then the
+        train_vidor entry point on 4 full-size videos at batch 4,
+        uninterrupted and stopped after a step then resumed, whose losses
+        must be bit-equal;
+     j. the checkpoints of i through eval_vidor --ckpt_path, stage A (four
+        role-attention launches a forward) then grounding (composed
+        forward launches);
+     k. Base-C training on exp6, as i (build_basec_train_step);
+     l. the checkpoints of k through eval_vidor --use_baseline on exp6
+        rt200 then grounding (composed forward launches, the Q buckets
+        reached), and the float32 one on exp6's config_.py (every triplet)
+        through stage A alone: unique triplets per video and the Q bucket
+        stage B would need;
+     i-l each in float32 and in bfloat16;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
-     against the port's CPU run on the same weights (float32); one train
-     step's loss and gradients (R=64, T=512, dropout 0) on the card against
-     the CPU; one BIG-C train step (2 full-size videos, dropout 0) on the
-     card against the CPU: equal assignments, the loss terms and the
-     gradients; the steady-state exp2 videos/s, the grounding inference
+     against the port's CPU run on the same weights (float32); one exp2
+     batch packed int8: the first layer's int32 accumulator exactly equal
+     to the CPU's, the outputs against the CPU's and the card's int8
+     logits against its float32 ones, and two faults (TF32, a wrong
+     scale) that these limits must see; one train step's loss and gradients
+     (R=64, T=512, dropout 0) on the card against the CPU; one BIG-C train
+     step (2 full-size videos, dropout 0) and one Base-C train step (2
+     full-size videos) on the card against the CPU: equal assignments or
+     label maps, the loss terms and the gradients (Base-C's with the
+     card's ReLU signs held to the CPU's); the steady-state exp2
+     videos/s (float32, bfloat16, int8 features), the grounding inference
      ms/video at that geometry and the two-stage videos/s;
   5. a {"kernels": [...]} line, then the {"ok": true, ...} line.
 """
@@ -87,6 +112,8 @@ import torch
 EXP2_CFG = "experiments/exp2/config_.py"
 EXP4_CFG = "experiments/exp4/config_.py"
 GRD_CFG = "experiments/grounding_weights/config_.py"
+EXP6_CFG = "experiments/exp6/config_.py"
+EXP6_RT200_CFG = "experiments/exp6/config_rt200.py"
 N_VIDEOS, BATCH = 16, 8
 VIDOR_VIDEOS, VIDOR_BATCH = 8, 4
 # stage-A predicates kept per query on the VidOR path: the CLI's default
@@ -142,12 +169,28 @@ BIGC_ENTRY_VIDEOS = 16
 # one BIG-C train step, card vs CPU: 2 full-size videos, float32 with no
 # TF32, dropout 0; the same tolerances as the grounding step's
 BIGC_PARITY_B = 2
+# the VidOR classification entry points (exp4 BIG-C v7, exp6 Base-C): 4
+# full-size synthetic videos at the configs' batch 4, one epoch (two
+# batches: three videos fall in the T=4096 bucket, one in T=2048); the
+# train step timed over CLS_STEPS steps after TRAIN_WARMUP
+CLS_VIDEOS, CLS_BATCH, CLS_STEPS = 4, 4, 5
+# Base-C card vs CPU: 2 full-size videos in one (N=64, T=2048) batch
+BASEC_PARITY_SEEDS = (3, 4)
 # ... and its encoder time max-pool: at most this share of the pool's bins
 # may pick another frame on the card than on the CPU, each only where the
 # CPU's values at the two picks lie within this much of the pool input's
 # largest magnitude (a tie within the devices' rounding)
 MAXPOOL_FLIP_SHARE = 1e-4
 MAXPOOL_TIE_RTOL = 1e-5
+# ... and its ReLUs: at most this share of a ReLU's inputs may change sign
+# between the CPU and the card, each within this much of the input's
+# largest magnitude
+RELU_FLIP_SHARE = 1e-4
+RELU_TIE_RTOL = 1e-5
+# int8 exp2 serving: the share of queries whose subject and object agree
+# between the card's int8 and float32 runs, below which the JAX test's
+# criterion on them does not count
+INT8_AGREE_FLOOR = 0.9
 
 
 def log(msg):
@@ -966,6 +1009,55 @@ def drive_bigc_train_step(card):
     return per_run, results
 
 
+def stop_and_resume(what, main, base, out, card, steps=None):
+    """A trainer entry point ``main`` on the arguments ``base`` three times
+    under ``out``: uninterrupted (``out/full``), and stopped after one step
+    as on SIGTERM then resumed from its checkpoint (``out/resumed``).
+    Fails unless the uninterrupted run takes ``steps`` steps (at least 2
+    where None) with a finite journal, the resumed run's journal equals it
+    bit for bit, and training launched no kernel.  Returns (kernel
+    launches, the uninterrupted run's summary)."""
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    full = main(base + ["--output_dir", out + "/full"])
+    first = main(base + ["--output_dir", out + "/resumed",
+                         "--stop_after_batches", "1"])
+    second = main(base + ["--output_dir", out + "/resumed",
+                          "--from_checkpoint"])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    journals = {}
+    for run in ("full", "resumed"):
+        with open(os.path.join(out, run, "logfile", "metrics.jsonl")) as f:
+            journals[run] = {r["step"]: r["value"]
+                             for r in map(json.loads, f)
+                             if r["tag"] == "loss/total"}
+    log(f"{what}: uninterrupted losses {journals['full']}; stopped at step "
+        f"{first['step']}, resumed to {second['step']}: losses "
+        f"{journals['resumed']}; peak memory "
+        f"{full['max_memory_allocated'] / 2 ** 30:.2f} / "
+        f"{first['max_memory_allocated'] / 2 ** 30:.2f} / "
+        f"{second['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
+        f"{seconds:.1f} s for the three runs; launches {counts} on {card}")
+    n = full["step"]
+    if (steps is not None and n != steps) or n < 2 or (
+            first["step"], second["step"]) != (1, n):
+        raise AssertionError(f"{what}: steps {n}, {first['step']}, "
+                             f"{second['step']}")
+    if sorted(journals["full"]) != list(range(1, n + 1)) or not all(
+            math.isfinite(v) for v in journals["full"].values()):
+        raise AssertionError(f"{what}: journal {journals['full']}")
+    if journals["resumed"] != journals["full"]:
+        raise AssertionError(f"{what}: the resumed run's losses "
+                             f"{journals['resumed']} differ from the "
+                             f"uninterrupted run's {journals['full']}")
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernel launches {counts} in training")
+    return counts, full
+
+
 def drive_train_vidvrd(card):
     """Phase 3f: the train_vidvrd entry point on exp2, 16 full-size videos
     at batch 8 (two steps), float32 then bfloat16: one uninterrupted run,
@@ -973,56 +1065,17 @@ def drive_train_vidvrd(card):
     checkpoint; the resumed run's journal must equal the uninterrupted
     one's bit for bit.  Returns ({dtype: {kernel: launches}}, {dtype:
     checkpoint directory})."""
-    import shutil
     from vidsgg_big_tpu_torch.tools import train_vidvrd
     per_run, ckpts = {}, {}
     for dtype in ("float32", "bfloat16"):
-        out = os.path.join(OUT_DIR, f"train_vidvrd_{dtype}")
-        shutil.rmtree(out, ignore_errors=True)
         base = ["--cfg_path", EXP2_CFG, "--synthetic",
                 str(BIGC_ENTRY_VIDEOS), "--synthetic_model_dims",
                 "--batch_size", str(BATCH), "--epochs", "1",
                 "--compute_dtype", dtype, "--device", "cuda"]
-        steps = BIGC_ENTRY_VIDEOS // BATCH
-        reset_counts()
-        t0 = time.perf_counter()
-        full = train_vidvrd.main(base + ["--output_dir", out + "/full"])
-        first = train_vidvrd.main(base + ["--output_dir", out + "/resumed",
-                                          "--stop_after_batches", "1"])
-        second = train_vidvrd.main(base + ["--output_dir", out + "/resumed",
-                                           "--from_checkpoint"])
-        seconds = time.perf_counter() - t0
-        counts = read_counts()
-        journals = {}
-        for run in ("full", "resumed"):
-            with open(os.path.join(out, run, "logfile",
-                                   "metrics.jsonl")) as f:
-                journals[run] = {r["step"]: r["value"]
-                                 for r in map(json.loads, f)
-                                 if r["tag"] == "loss/total"}
-        log(f"train_vidvrd {dtype} batch {BATCH}: uninterrupted losses "
-            f"{journals['full']}; stopped at step {first['step']}, resumed "
-            f"to {second['step']}: losses {journals['resumed']}; peak memory "
-            f"{full['max_memory_allocated'] / 2 ** 30:.2f} / "
-            f"{first['max_memory_allocated'] / 2 ** 30:.2f} / "
-            f"{second['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
-            f"{seconds:.1f} s for the three runs; launches {counts} on "
-            f"{card}")
-        if (full["step"], first["step"], second["step"]) != (steps, 1,
-                                                            steps):
-            raise AssertionError(f"{dtype}: steps {full['step']}, "
-                                 f"{first['step']}, {second['step']}")
-        if sorted(journals["full"]) != list(range(1, steps + 1)) or not all(
-                math.isfinite(v) for v in journals["full"].values()):
-            raise AssertionError(f"{dtype}: journal {journals['full']}")
-        if journals["resumed"] != journals["full"]:
-            raise AssertionError(f"{dtype}: the resumed run's losses "
-                                 f"{journals['resumed']} differ from the "
-                                 f"uninterrupted run's {journals['full']}")
-        if any(counts.values()):
-            raise AssertionError(f"{dtype}: kernel launches {counts} in "
-                                 "training")
-        per_run[dtype] = counts
+        per_run[dtype], full = stop_and_resume(
+            f"train_vidvrd {dtype} batch {BATCH}", train_vidvrd.main, base,
+            os.path.join(OUT_DIR, f"train_vidvrd_{dtype}"), card,
+            steps=BIGC_ENTRY_VIDEOS // BATCH)
         ckpts[dtype] = full["ckpt_dir"]
     return per_run, ckpts
 
@@ -1059,6 +1112,446 @@ def serve_trained(card, ckpts):
     return per_run
 
 
+def drive_exp2_int8():
+    """Phase 3h: exp2's int8 serving path, eval_vidvrd --feat_dtype int8
+    (features packed int8 with a scale per video, the first visual layer an
+    int8 product; float32 compute): 16 full-size videos at batch 8.
+    Returns {"int8": {kernel: launches}}."""
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
+    reset_counts()
+    res = eval_vidvrd.main([
+        "--cfg_path", EXP2_CFG, "--synthetic", str(N_VIDEOS),
+        "--synthetic_model_dims", "--batch_size", str(BATCH),
+        "--feat_dtype", "int8", "--device", "cuda", "--output_dir", OUT_DIR,
+        "--metrics_json", os.path.join(OUT_DIR, "metrics_int8.json")])
+    counts = read_counts()
+    log(f"eval_vidvrd int8: {json.dumps(res)}; launches {counts}")
+    if res["n_videos"] != N_VIDEOS or res["n_relations"] == 0 or \
+            not math.isfinite(res["mAP"]):
+        raise AssertionError(f"int8: {res['n_videos']} videos, "
+                             f"{res['n_relations']} relations, mAP "
+                             f"{res['mAP']}")
+    if counts["role_attention"] != n_deco * res["n_batches"]:
+        raise AssertionError(
+            f"int8: {counts['role_attention']} role-attention launches for "
+            f"{res['n_batches']} forwards, expected {n_deco} each")
+    return {"int8": counts}
+
+
+def vidor_train_parts(baseline, dtype, **overrides):
+    """The exp4 BIG-C v7 (or exp6 Base-C) model, random weights from the
+    entry points' seed, its config and train config, on the CPU."""
+    from vidsgg_big_tpu_torch.models.base_c import BaseCConfig
+    from vidsgg_big_tpu_torch.models.big_c import BigCConfig
+    from vidsgg_big_tpu_torch.tools import eval_vidor, eval_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    cfgs = parse_config_py(EXP6_CFG if baseline else EXP4_CFG)
+    mc = dict(cfgs["model_config"], compute_dtype=dtype)
+    if baseline:
+        cfg = dataclasses.replace(BaseCConfig.from_dict(mc), **overrides)
+        return eval_vidor.build_basec_model(cfg, mc), cfg, cfgs[
+            "train_config"]
+    cfg = dataclasses.replace(BigCConfig.from_dict(mc, variant="v7"),
+                              **overrides)
+    return eval_vidvrd.build_model(cfg, mc), cfg, cfgs["train_config"]
+
+
+def time_vidor_step(baseline, dtype):
+    """The train step of the VidOR classification trainer (build_train_step
+    of BIG-C v7 at t_abs=4096, dropout 0.1, or build_basec_train_step) on
+    one batch of 4 full-size videos at (N=64, T=4096) with their GT, in the
+    wire dtype of the entry point: (ms/step, peak bytes, loss)."""
+    from vidsgg_big_tpu_torch.data.transfer import wire_dtype
+    from vidsgg_big_tpu_torch.tools.profile_infer import stage_a_batch
+    from vidsgg_big_tpu_torch.tools.train_vidor import T_ABS
+    from vidsgg_big_tpu_torch.train.loop import step_generator
+    from vidsgg_big_tpu_torch.train.steps import (build_basec_train_step,
+                                                  build_train_step)
+    from vidsgg_big_tpu_torch.train.train_state import TrainState
+    model, cfg, tc = vidor_train_parts(baseline, dtype)
+    model = model.cuda()
+    state = TrainState(model, tc["initial_lr"], tc["lr_decay"], [10_000])
+    build = build_basec_train_step if baseline else build_train_step
+    step = build(model, state, t_abs=T_ABS)
+    batch = stage_a_batch(cfg, "cuda", wire_dtype(None, dtype))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP):
+        step(*batch, generator=step_generator(1, i))["total"].item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CLS_STEPS):
+        metrics = step(*batch, generator=step_generator(1, TRAIN_WARMUP + i))
+    loss = metrics["total"].item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / CLS_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return ms, peak, loss
+
+
+def drive_vidor_training(card, baseline):
+    """Phases 3i (BIG-C v7 on exp4) and 3k (Base-C on exp6, with
+    ``baseline``): the train step timed on one full-size batch, then the
+    train_vidor entry point on CLS_VIDEOS full-size videos at batch
+    CLS_BATCH, one epoch, uninterrupted and stopped after a step then
+    resumed, whose losses must equal the uninterrupted run's bit for bit;
+    float32 then bfloat16.  Returns ({dtype: {kernel: launches}}, {dtype:
+    checkpoint directory}, {dtype: result})."""
+    from vidsgg_big_tpu_torch.tools import train_vidor
+    tag = "base" if baseline else "cls"
+    per_run, ckpts, results = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        ms, peak, loss = time_vidor_step(baseline, dtype)
+        log(f"VidOR {tag} train step {dtype} B={CLS_BATCH} N=64 T=4096: "
+            f"{ms} ms/step = {CLS_BATCH * 1e3 / ms} videos/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, loss {loss} on {card}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{tag} {dtype}: train loss {loss}")
+        base = (["--train_baseline"] if baseline else []) + [
+            "--cfg_path", EXP6_CFG if baseline else EXP4_CFG,
+            "--synthetic", str(CLS_VIDEOS), "--synthetic_model_dims",
+            "--batch_size", str(CLS_BATCH), "--epochs", "1",
+            "--compute_dtype", dtype, "--device", "cuda"]
+        counts, full = stop_and_resume(
+            f"train_vidor {tag} {dtype} batch {CLS_BATCH}", train_vidor.main,
+            base, os.path.join(OUT_DIR, f"train_vidor_{tag}_{dtype}"), card)
+        per_run[dtype], ckpts[dtype] = counts, full["ckpt_dir"]
+        results[dtype] = dict(ms_per_step=ms,
+                              videos_per_s=CLS_BATCH * 1e3 / ms,
+                              peak_bytes=peak,
+                              entry_peak_bytes=full["max_memory_allocated"])
+    return per_run, ckpts, results
+
+
+def serve_vidor_checkpoints(card, ckpts, baseline):
+    """Phases 3j and 3l: each dtype's trained checkpoint through eval_vidor
+    --ckpt_path at that dtype, stage A then grounding (grounding_weights,
+    random weights) on CLS_VIDEOS full-size videos at batch CLS_BATCH: the
+    BIG-C v7 checkpoint on exp4 (n_deco_layers role-attention launches a
+    stage-A forward), the Base-C one with --use_baseline on exp6 rt200 (no
+    role attention); one composed-forward launch per engaged stage-B
+    encoder either way.  Base-C's float32 checkpoint also runs exp6's
+    config_.py (all triplets) through stage A alone.  Returns {dtype:
+    {kernel: launches}}."""
+    from vidsgg_big_tpu_torch.data.bucketing import pick_unbounded
+    from vidsgg_big_tpu_torch.models.grounding import (GroundingConfig,
+                                                       composed_encoders)
+    from vidsgg_big_tpu_torch.tools import eval_vidor
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    gcfg = GroundingConfig.from_dict(parse_config_py(GRD_CFG)[
+        "model_config"])
+    n_deco = 0 if baseline else parse_config_py(EXP4_CFG)["model_config"][
+        "n_deco_layers"]
+    tag = "base" if baseline else "cls"
+    stage_a = (["--use_baseline", "--cfg_path", EXP6_RT200_CFG]
+               if baseline else ["--cfg_path", EXP4_CFG])
+    per_run = {}
+    for dtype, ckpt in ckpts.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_vidor.main(stage_a + [
+            "--grounding_cfg_path", GRD_CFG, "--ckpt_path", ckpt,
+            "--synthetic", str(CLS_VIDEOS), "--synthetic_model_dims",
+            "--batch_size", str(CLS_BATCH), "--compute_dtype", dtype,
+            "--feat_dtype", dtype, "--device", "cuda", "--output_dir",
+            OUT_DIR, "--metrics_json",
+            os.path.join(OUT_DIR, f"metrics_{tag}_trained_{dtype}.json")])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        buckets = sorted({(q, t) for q, t, _ in res["stage_b_batches"]})
+        engaged = sum(len(composed_encoders(gcfg, b, q, t))
+                      for q, t, b in res["stage_b_batches"])
+        log(f"eval_vidor of the {dtype}-trained {tag} checkpoint {ckpt}: "
+            f"{json.dumps(res)}; stage-B (Q, T) buckets reached {buckets}; "
+            f"{seconds:.1f} s; launches {counts} on {card}")
+        device_s = res["stage_a_seconds"] + res["stage_b_seconds"]
+        log(f"two-stage VidOR with the trained {tag} checkpoint {dtype}: "
+            f"stage A {1e3 * res['stage_a_seconds'] / res['n_videos']} "
+            f"ms/video, {res['n_videos'] / device_s} videos/s through both "
+            "stages (first calls of the process, forward + decode); "
+            f"{card}")
+        if counts["role_attention"] != n_deco * res["stage_a_batches"]:
+            raise AssertionError(
+                f"{tag} {dtype}: {counts['role_attention']} role-attention "
+                f"launches for {res['stage_a_batches']} stage-A forwards, "
+                f"expected {n_deco} each")
+        if engaged == 0 or counts["composed_attention"] != engaged:
+            raise AssertionError(
+                f"{tag} {dtype}: {counts['composed_attention']} "
+                f"composed-attention launches in stage B, where the gate "
+                f"engages {engaged} encoders; expected one each, and at "
+                "least one")
+        if not math.isfinite(res["mAP"]) or res["n_relations"] == 0:
+            raise AssertionError(f"{tag} {dtype}: mAP {res['mAP']}, "
+                                 f"{res['n_relations']} relations")
+        per_run[dtype] = counts
+    if baseline:
+        reset_counts()
+        res = eval_vidor.main([
+            "--use_baseline", "--cfg_path", EXP6_CFG, "--ckpt_path",
+            ckpts["float32"], "--synthetic", str(CLS_VIDEOS),
+            "--synthetic_model_dims", "--batch_size", str(CLS_BATCH),
+            "--device", "cuda", "--output_dir", OUT_DIR])
+        counts = read_counts()
+        trip = res["stage_a_triplets"]
+        log(f"eval_vidor Base-C exp6 config_.py (rt_triplets_topk -1), "
+            f"stage A alone: unique triplets per video {trip}; stage B "
+            f"would need the Q={pick_unbounded(max(trip))} bucket; "
+            f"{json.dumps(res)}; launches {counts}")
+        if min(trip) == 0 or any(counts.values()):
+            raise AssertionError(f"Base-C stage A: triplets {trip}, "
+                                 f"launches {counts}")
+        per_run["all_triplets_float32"] = counts
+    return per_run
+
+
+def check_int8(card):
+    """Phase 4 (int8 serving, exp2): one batch of 8 full-size videos packed
+    int8, float32 compute.  The first visual layer's quantized weight, its
+    scale and its int32 accumulator on the card exactly equal to the
+    CPU's; the card's att and pred_logits against the port's CPU run at
+    the float32 check's limits (cpu_gpu_readings); the card's int8 logits
+    against its float32 logits on the same records by int8_f32_readings.
+    Two faults the limits must see, each run once on the card: TF32 in the
+    float32 tail, and each video dequantized at its neighbour's scale.
+    Returns the int8 forward + triplets videos/s."""
+    from vidsgg_big_tpu_torch.data.bucketing import (BucketSpec,
+                                                     bucketed_batches)
+    from vidsgg_big_tpu_torch.models import layers
+    from vidsgg_big_tpu_torch.models.big_c import BigCConfig
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd
+    from vidsgg_big_tpu_torch.train.steps import build_infer_step
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    from vidsgg_big_tpu_torch.utils.device import strict_float32
+    mc = parse_config_py(EXP2_CFG)["model_config"]
+    cfg = BigCConfig.from_dict(mc)
+    recs, feat = eval_vidvrd.synthetic_records(BATCH, cfg, True)
+    recs = list(recs)
+    props = {}
+    for dtype in ("int8", "float32"):
+        _, _, props[dtype], _ = next(iter(bucketed_batches(
+            recs, BucketSpec(feat_dim=feat, feat_dtype=dtype,
+                             **eval_vidvrd.FULL_SIZE_BUCKETS),
+            BATCH, with_gt=False)))
+    model = eval_vidvrd.build_model(cfg, mc).eval()
+    visual = torch.from_numpy(props["int8"].feats[..., :cfg.dim_feat])
+    wrong_scale = dataclasses.replace(props["int8"], feat_scale=np.roll(
+        props["int8"].feat_scale, 1))
+    with torch.inference_mode():
+        sw, kq = layers.quantize_weight(model.fc_feat2enti[0].weight)
+        acc_cpu = layers.int8_accumulate(visual, kq)
+        cpu = model(props["int8"].to("cpu"))
+        model = model.cuda()
+        sw_g, kq_g = layers.quantize_weight(model.fc_feat2enti[0].weight)
+        acc_gpu = layers.int8_accumulate(visual.cuda(), kq_g)
+        gpu = model(props["int8"].to("cuda"))
+        f32 = model(props["float32"].to("cuda"))
+        faults = {"each video at its neighbour's scale":
+                  model(wrong_scale.to("cuda"))}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            faults["TF32 in the float32 tail"] = model(
+                props["int8"].to("cuda"))
+        finally:
+            strict_float32()
+    log(f"int8 first layer: quantized weight equal on the card "
+        f"{torch.equal(kq, kq_g.cpu())}, scale equal "
+        f"{torch.equal(sw, sw_g.cpu())}; int32 accumulator "
+        f"{tuple(acc_cpu.shape)} equal {torch.equal(acc_cpu, acc_gpu.cpu())}"
+        f", max |acc| {acc_cpu.abs().max().item()}")
+    if not (torch.equal(kq, kq_g.cpu()) and torch.equal(sw, sw_g.cpu())
+            and torch.equal(acc_cpu, acc_gpu.cpu())):
+        raise AssertionError("the card's int8 first layer (weight, scale "
+                             "or accumulator) differs from the CPU's")
+    compare_cpu_gpu(cpu, gpu, "int8 card vs CPU")
+    r, broken = int8_f32_readings(f32, gpu)
+    log(f"int8 vs float32 logits on the card: {r}")
+    if broken:
+        raise AssertionError(f"int8 logits vs float32: {broken} past their "
+                             f"limits ({r})")
+    for name, out in faults.items():
+        r, broken = cpu_gpu_readings(cpu, out)
+        r_f32, broken_f32 = int8_f32_readings(f32, out)
+        log(f"int8 check's control, {name}: vs CPU {r}; vs float32 {r_f32};"
+            f" breaks {broken + broken_f32}")
+        if not broken + broken_f32:
+            raise AssertionError(f"the int8 check does not see {name}")
+    infer = build_infer_step(model, topk=10)
+    dev = props["int8"].to("cuda")
+    ms = cuda_ms(lambda: infer(dev), iters=20, warmup=3)
+    log(f"BIG-C v10 exp2 int8 features (float32 compute) B={BATCH}: "
+        f"forward + triplets {ms} ms/batch = {BATCH * 1e3 / ms} videos/s "
+        f"on {card}")
+    return BATCH * 1e3 / ms
+
+
+def int8_f32_readings(f32, int8):
+    """The card's int8 logits against its float32 logits on the same
+    records: (readings, the limits they break).  The JAX test's criterion
+    (tests/test_model_bigc.py:194-221: cosine > 0.999, atol 0.15 x max)
+    on the queries whose subject and object (argmax over att) both runs
+    pick alike, which must be at least INT8_AGREE_FLOOR of them.  At
+    random weights the quantization moves some att argmaxes (near-uniform
+    over 50 tracklets), and a moved argmax gathers another tracklet's
+    features into the head: over all queries the criterion fails in JAX as
+    in the port (cosine 0.99 in both at the demo widths,
+    tests/test_torch_int8.py), so the cosine over all queries is read, not
+    held."""
+    a = f32["pred_logits"].double().cpu()
+    b = int8["pred_logits"].double().cpu()
+    alike = (f32["att"].argmax(-1) == int8["att"].argmax(-1)).all(
+        dim=1).cpu()
+
+    def cosine(x, y):
+        return ((x * y).sum() / (x.norm() * y.norm())).item()
+    x, y = (a[alike], b[alike]) if alike.any() else (a, b)
+    r = {"cosine over all": cosine(a, b),
+         "subject and object agree": alike.float().mean().item(),
+         "cosine there": cosine(x, y),
+         "max |diff| there": (x - y).abs().max().item(),
+         "0.15 x max |f32| there": 0.15 * x.abs().max().item()}
+    broken = [k for k, bad in (
+        ("agreement", r["subject and object agree"] < INT8_AGREE_FLOOR),
+        ("cosine", not r["cosine there"] > 0.999),
+        ("atol", r["max |diff| there"] > r["0.15 x max |f32| there"]))
+        if bad]
+    return r, broken
+
+
+def check_basec_parity():
+    """Phase 4 (Base-C): one train step of exp6's Base-C (no dropout) on
+    one full-size batch (2 videos in the (N=64, T=2048) bucket, 4,032
+    ordered pairs each, with their GT) on the card against the port's CPU
+    run on the same weights, float32: equal label maps, pred_logits within
+    1e-3 (rtol and atol), the loss within TRAIN_LOSS_RTOL, every gradient
+    within TRAIN_GRAD_TOL of its leaf.  The card's backward takes the
+    CPU's routing at each kink: the encoder max-pool's picks
+    (check_bigc_train_parity says why) and each ReLU's input signs, an
+    input within rounding of 0 sending its whole gradient one way or not
+    at all; the card's own picks and signs are held apart
+    (check_pool_picks, check_relu_flips), and the card's step on its own
+    ReLU signs is read beside it.  Returns the worst gradient leaf's max
+    |diff| / max |g|."""
+    from vidsgg_big_tpu_torch.data.bucketing import (BucketSpec,
+                                                     bucketed_batches)
+    from vidsgg_big_tpu_torch.data.synthetic_vidor import vidor_record
+    from vidsgg_big_tpu_torch.models import big_c
+    from vidsgg_big_tpu_torch.models.base_c import (basec_multihot,
+                                                    basec_train_loss)
+    from vidsgg_big_tpu_torch.tools.train_vidor import T_ABS
+    model, cfg, _ = vidor_train_parts(True, "float32")
+    feat = cfg.dim_feat + cfg.dim_clsme
+    rows = [vidor_record(i, feat, True) for i in BASEC_PARITY_SEEDS]
+    _, _, props, gts = next(iter(bucketed_batches(rows, BucketSpec(
+        feat_dim=feat, n_ladder=(64,), t_ladder=(2048,)), len(rows))))
+    batch = (props.to("cpu"), gts.to("cpu"))
+    pooled, real_pool = [], big_c.adaptive_max_pool1d
+
+    def run(m, props, gts, pool):
+        big_c.adaptive_max_pool1d = pool
+        try:
+            m.train()
+            m.zero_grad()
+            out = m(props)
+            total, _ = basec_train_loss(out, props, gts, cfg, t_abs=T_ABS)
+            total.backward()
+            labels = basec_multihot(props, gts, cfg.num_pred_cats,
+                                    cfg.positive_viou_th, t_abs=T_ABS)
+        finally:
+            big_c.adaptive_max_pool1d = real_pool
+        return ({"cls": total.item()},
+                {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                out["pred_logits"].detach().cpu(),
+                [x.cpu() for x in labels])
+
+    def seen_pool(x, out_len, axis=-2):
+        pooled.append(x.detach())
+        return real_pool(x, out_len, axis)
+    relu_cpu, relu_gpu = {}, {}
+    hooks = relu_hooks(model, relu_cpu)
+    t0 = time.perf_counter()
+    cpu_terms, cpu_grads, cpu_logits, cpu_labels = run(model, *batch,
+                                                       seen_pool)
+    seconds = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    routing = amax_routing(pooled[0], cfg.enco_pool_len)
+    signs = {k: (x > 0).cuda() for k, x in relu_cpu.items()}
+    dev = [type(x)(**{k: v.cuda() for k, v in vars(x).items()})
+           for x in batch]
+    card = copy.deepcopy(model).cuda()
+    reset_counts()
+    _, own_grads, _, _ = run(card, *dev, routed_max_pool(routing.cuda(),
+                                                         pooled))
+    hooks = relu_hooks(card, relu_gpu, signs)
+    gpu_terms, gpu_grads, gpu_logits, gpu_labels = run(
+        card, *dev, routed_max_pool(routing.cuda(), pooled))
+    counts = read_counts()
+    check_pool_picks("Base-C", pooled, routing, cfg.enco_pool_len)
+    check_relu_flips("Base-C", relu_cpu, relu_gpu)
+    log(f"Base-C train step on the CPU ({seconds:.1f} s) and the card: "
+        f"loss {cpu_terms} / {gpu_terms}; positive pairs "
+        f"{int(cpu_labels[1].sum())}; max |pred_logits| diff "
+        f"{(cpu_logits - gpu_logits).abs().max().item()} of max "
+        f"{cpu_logits.abs().max().item()}")
+    if any(counts.values()):
+        raise AssertionError(f"Base-C train step launches {counts}")
+    if not all(torch.equal(a, b) for a, b in zip(cpu_labels, gpu_labels)):
+        raise AssertionError("the card's Base-C label maps differ from the "
+                             "CPU's")
+    torch.testing.assert_close(gpu_logits, cpu_logits, rtol=1e-3, atol=1e-3)
+    own = max(((own_grads[k] - g).abs().max().item()
+               / max(g.abs().max().item(), 1e-12), k)
+              for k, g in cpu_grads.items())
+    worst = check_terms_and_grads(cpu_terms, gpu_terms, cpu_grads, gpu_grads)
+    log(f"Base-C train step card vs CPU: equal label maps, worst gradient "
+        f"leaf max |diff| / max |g| = {worst[0]} ({worst[1]}) on the CPU's "
+        f"ReLU signs, {own[0]} ({own[1]}) on the card's own")
+    return worst[0]
+
+
+def relu_hooks(model, seen, signs=None):
+    """Forward hooks on every nn.ReLU of ``model``, by module name: each
+    stores its input (detached) in ``seen``; with ``signs`` (another run's
+    inputs > 0) each keeps its forward and routes its backward by them.
+    Returns the hook handles."""
+    def hook(name):
+        def fn(module, inputs, out):
+            x = inputs[0]
+            seen[name] = x.detach()
+            if signs is not None:
+                return out.detach() + (x - x.detach()) * signs[name]
+        return fn
+    return [m.register_forward_hook(hook(name))
+            for name, m in model.named_modules()
+            if isinstance(m, torch.nn.ReLU)]
+
+
+def check_relu_flips(what, cpu, gpu):
+    """The card's ReLU inputs (``gpu``, by module name) against the CPU's:
+    at most RELU_FLIP_SHARE of each ReLU's inputs may change sign, each
+    within RELU_TIE_RTOL of the input's largest magnitude on the CPU."""
+    for name, x in cpu.items():
+        y = gpu[name].cpu()
+        flipped = (x > 0) != (y > 0)
+        flips, scale = int(flipped.sum()), x.abs().max().item()
+        gap = x[flipped].abs().max().item() if flips else 0.0
+        log(f"{what} ReLU {name}: {flips} of {x.numel()} inputs change sign "
+            f"on the card (its backward takes the CPU's signs); the largest "
+            f"|CPU input| among them {gap}, max |input| {scale}, max |input "
+            f"card - CPU| {(y - x).abs().max().item()}")
+        if flips > RELU_FLIP_SHARE * x.numel() or gap > RELU_TIE_RTOL * scale:
+            raise AssertionError(
+                f"{what} ReLU {name}: {flips} of {x.numel()} inputs change "
+                f"sign on the card (at most "
+                f"{RELU_FLIP_SHARE * x.numel():.0f}), up to {gap} from 0 (at "
+                f"most {RELU_TIE_RTOL * scale})")
+
+
 def amax_routing(x, out_len):
     """How torch.amax's backward spreads each bin's gradient over the bin
     (adaptive_max_pool1d over the time axis of x (n, L, E), L a multiple of
@@ -1080,6 +1573,34 @@ def routed_max_pool(routing, seen):
         b = x.reshape(n, out_len, length // out_len, e)
         return b.detach().amax(2) + ((b - b.detach()) * routing).sum(2)
     return pool
+
+
+def check_pool_picks(what, pooled, routing, pool_len):
+    """The card's own picks of the encoder's time max-pool against the
+    CPU's (``pooled``: the pool inputs of the CPU run, then the card's;
+    ``routing``: the CPU's amax_routing): at most MAXPOOL_FLIP_SHARE of the
+    bins may pick another frame, each a tie within MAXPOOL_TIE_RTOL of the
+    pool input's largest magnitude on the CPU's values."""
+    own = amax_routing(pooled[1].cpu(), pool_len)
+    flipped = (own != routing).any(2)
+    flips, bins = int(flipped.sum()), flipped.numel()
+    # the CPU's max of each bin less its least value among the card's picks
+    x = pooled[0].reshape(routing.shape)
+    gap = (x.amax(2) - torch.where(own > 0, x, math.inf).amin(2)).max()
+    scale = pooled[0].abs().max().item()
+    log(f"{what} encoder max-pool: {flips} of {bins} bins route their "
+        "gradient differently on the card than on the CPU (the card's "
+        "backward takes the CPU's routing); the widest gap between the "
+        f"CPU's values at the two picks {gap.item()}, max |pool input| "
+        f"{scale}, max |pool input card - CPU| "
+        f"{(pooled[1].cpu() - pooled[0]).abs().max().item()}")
+    if flips > MAXPOOL_FLIP_SHARE * bins or \
+            gap.item() > MAXPOOL_TIE_RTOL * scale:
+        raise AssertionError(
+            f"the card's max-pool picks another frame in {flips} of {bins} "
+            f"bins (at most {MAXPOOL_FLIP_SHARE * bins:.0f}), with a gap up "
+            f"to {gap.item()} (at most {MAXPOOL_TIE_RTOL * scale}) on the "
+            "CPU's values")
 
 
 def check_bigc_train_parity():
@@ -1138,26 +1659,7 @@ def check_bigc_train_parity():
         copy.deepcopy(model).cuda(), *dev,
         routed_max_pool(routing.cuda(), pooled))
     counts = read_counts()
-    own = amax_routing(pooled[1].cpu(), cfg.enco_pool_len)
-    flipped = (own != routing).any(2)
-    flips, bins = int(flipped.sum()), flipped.numel()
-    # the CPU's max of each bin less its least value among the card's picks
-    x = pooled[0].reshape(routing.shape)
-    gap = (x.amax(2) - torch.where(own > 0, x, math.inf).amin(2)).max()
-    scale = pooled[0].abs().max().item()
-    log(f"BIG-C encoder max-pool: {flips} of {bins} bins route their "
-        "gradient differently on the card than on the CPU (the card's "
-        "backward takes the CPU's routing); the widest gap between the "
-        f"CPU's values at the two picks {gap.item()}, max |pool input| "
-        f"{scale}, max |pool input card - CPU| "
-        f"{(pooled[1].cpu() - pooled[0]).abs().max().item()}")
-    if flips > MAXPOOL_FLIP_SHARE * bins or \
-            gap.item() > MAXPOOL_TIE_RTOL * scale:
-        raise AssertionError(
-            f"the card's max-pool picks another frame in {flips} of {bins} "
-            f"bins (at most {MAXPOOL_FLIP_SHARE * bins:.0f}), with a gap up "
-            f"to {gap.item()} (at most {MAXPOOL_TIE_RTOL * scale}) on the "
-            "CPU's values")
+    check_pool_picks("BIG-C", pooled, routing, cfg.enco_pool_len)
     if any(counts.values()):
         raise AssertionError(f"BIG-C train step launches {counts}")
     log(f"BIG-C train step on the CPU ({seconds:.1f} s) and the card: loss "
@@ -1171,21 +1673,7 @@ def check_bigc_train_parity():
             log(f"the {name}'s assignment {q.tolist()} costs {total} under "
                 "the CPU's cost")
         raise AssertionError("the card's assignment differs from the CPU's")
-    worst = (0.0, None)
-    for k, g in cpu_grads.items():
-        if not (torch.isfinite(g).all() and torch.isfinite(
-                gpu_grads[k]).all()):
-            raise AssertionError(f"non-finite gradient {k}")
-        scale = g.abs().max().item()
-        err = (gpu_grads[k] - g).abs().max().item()
-        worst = max(worst, (err / max(scale, 1e-12), k))
-        if err > TRAIN_GRAD_TOL * scale + 1e-6:
-            raise AssertionError(f"gradient {k}: max |card - CPU| {err}, "
-                                 f"max |CPU| {scale}")
-    for name, v in cpu_terms.items():
-        if abs(gpu_terms[name] - v) > TRAIN_LOSS_RTOL * abs(v):
-            raise AssertionError(f"loss {name}: card {gpu_terms[name]}, "
-                                 f"CPU {v}")
+    worst = check_terms_and_grads(cpu_terms, gpu_terms, cpu_grads, gpu_grads)
     log(f"BIG-C train step card vs CPU: equal assignments "
         f"({int((cpu_q >= 0).sum())} pairs), worst gradient leaf max |diff| "
         f"/ max |g| = {worst[0]} ({worst[1]})")
@@ -1228,14 +1716,25 @@ def check_train_parity():
         raise AssertionError(f"card train step launches {counts}")
     log(f"train step on the CPU ({seconds:.1f} s) and the card: loss terms "
         f"{cpu_terms} / {gpu_terms}")
-    worst = 0.0
+    worst, _ = check_terms_and_grads(cpu_terms, gpu_terms, cpu_grads,
+                                     gpu_grads)
+    log(f"train step card vs CPU: worst gradient leaf max |diff| / max |g| "
+        f"= {worst}")
+    return worst
+
+
+def check_terms_and_grads(cpu_terms, gpu_terms, cpu_grads, gpu_grads):
+    """Every loss term within TRAIN_LOSS_RTOL of the CPU's, every gradient
+    finite and within TRAIN_GRAD_TOL of its leaf's scale on the CPU.
+    Returns (worst max |diff| / max |g|, its leaf)."""
+    worst = (0.0, None)
     for k, g in cpu_grads.items():
         if not (torch.isfinite(g).all() and torch.isfinite(
                 gpu_grads[k]).all()):
             raise AssertionError(f"non-finite gradient {k}")
         scale = g.abs().max().item()
         err = (gpu_grads[k] - g).abs().max().item()
-        worst = max(worst, err / max(scale, 1e-12))
+        worst = max(worst, (err / max(scale, 1e-12), k))
         if err > TRAIN_GRAD_TOL * scale + 1e-6:
             raise AssertionError(f"gradient {k}: max |card - CPU| {err}, "
                                  f"max |CPU| {scale}")
@@ -1243,8 +1742,6 @@ def check_train_parity():
         if abs(gpu_terms[name] - v) > TRAIN_LOSS_RTOL * abs(v):
             raise AssertionError(f"loss {name}: card {gpu_terms[name]}, "
                                  f"CPU {v}")
-    log(f"train step card vs CPU: worst gradient leaf max |diff| / max |g| "
-        f"= {worst}")
     return worst
 
 
@@ -1281,25 +1778,37 @@ def check_outputs(card):
     return rates
 
 
-def compare_cpu_gpu(cpu, gpu):
-    """float32, no TF32 on either side: att within 1e-4 absolute and
-    pred_logits within 1e-3 (rtol and atol) where both sides pick the same
-    subject and object (argmax over att); a near tie may flip an argmax
-    between two summation orders, so at most 1% of queries may differ."""
+def cpu_gpu_readings(cpu, gpu):
+    """The card's BIG-C output against the CPU's, float32 with no TF32 on
+    either side: (readings, the limits they break).  att within 1e-4
+    absolute and pred_logits within 1e-3 (rtol and atol) where both sides
+    pick the same subject and object (argmax over att); a near tie may flip
+    an argmax between two summation orders, so at most 1% of queries may
+    differ; every output finite."""
     att_c, att_g = cpu["att"], gpu["att"].cpu()
-    log(f"card vs CPU: max |att| diff {(att_c - att_g).abs().max().item()}, "
-        f"max |pred_logits| diff "
-        f"{(cpu['pred_logits'] - gpu['pred_logits'].cpu()).abs().max().item()}")
-    torch.testing.assert_close(att_g, att_c, rtol=0, atol=1e-4)
+    lc, lg = cpu["pred_logits"], gpu["pred_logits"].cpu()
     same = (att_c.argmax(-1) == att_g.argmax(-1)).all(dim=1)    # (B, Q)
-    if same.float().mean() < 0.99:
-        raise AssertionError(f"argmax agrees on {same.float().mean()} of "
-                             "queries")
-    torch.testing.assert_close(gpu["pred_logits"].cpu()[same],
-                               cpu["pred_logits"][same], rtol=1e-3, atol=1e-3)
-    for out in (cpu, gpu):
-        if not all(torch.isfinite(v).all() for v in out.values()):
-            raise AssertionError("non-finite model output")
+    r = {"max |att| diff": (att_g - att_c).abs().max().item(),
+         "argmax agrees": same.float().mean().item(),
+         "max |pred_logits| diff": (lg - lc).abs().max().item(),
+         "there": ((lg - lc)[same].abs().max().item() if same.any()
+                   else math.nan)}
+    broken = [k for k, bad in (
+        ("att", r["max |att| diff"] > 1e-4),
+        ("argmax", r["argmax agrees"] < 0.99),
+        ("pred_logits", not torch.allclose(lg[same], lc[same], rtol=1e-3,
+                                           atol=1e-3)),
+        ("finite", not all(torch.isfinite(v).all() for out in (cpu, gpu)
+                           for v in out.values()))) if bad]
+    return r, broken
+
+
+def compare_cpu_gpu(cpu, gpu, what="card vs CPU"):
+    """Raise unless the card's output meets cpu_gpu_readings' limits."""
+    r, broken = cpu_gpu_readings(cpu, gpu)
+    log(f"{what}: {r}")
+    if broken:
+        raise AssertionError(f"{what}: {broken} past their limits ({r})")
 
 
 def grounding_batch(seed=0):
@@ -1430,9 +1939,18 @@ def main(argv=None):
     by_path["bigc_train_step"], bigc_train = drive_bigc_train_step(card)
     by_path["train_vidvrd"], ckpts = drive_train_vidvrd(card)
     by_path["eval_trained_checkpoint"] = serve_trained(card, ckpts)
-    # role attention runs in float32 under both compute dtypes; each
-    # composed row counts the launches of its dtype's runs
-    rows_of = {"role_attention": ("role_attention", ("float32", "bfloat16"))}
+    by_path["exp2_int8_serving"] = drive_exp2_int8()
+    vidor_train = {}
+    for baseline in (False, True):
+        tag = "base" if baseline else "cls"
+        by_path[f"train_vidor_{tag}"], cls_ckpts, vidor_train[tag] = \
+            drive_vidor_training(card, baseline)
+        by_path[f"eval_vidor_{tag}_checkpoint"] = serve_vidor_checkpoints(
+            card, cls_ckpts, baseline)
+    # role attention runs in float32 under every compute and feature dtype;
+    # each composed row counts the launches of its dtype's runs
+    rows_of = {"role_attention": ("role_attention", (
+        "float32", "bfloat16", "int8", "all_triplets_float32"))}
     for wrapper, row in (("composed_attention", "composed_attention"),
                          ("composed_attention_train",
                           "composed_attention_dropout"),
@@ -1443,14 +1961,16 @@ def main(argv=None):
     for k in kernels:
         wrapper, dtypes = rows_of[k["name"]]
         k["launches_by_path"] = {
-            p: sum(c[d][wrapper] for d in dtypes)
+            p: sum(c[d][wrapper] for d in dtypes if d in c)
             for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no launch on any path")
-    check_outputs(card)
+    rates = check_outputs(card)
+    rates["int8"] = check_int8(card)
     check_train_parity()
     check_bigc_train_parity()
+    check_basec_parity()
     ms_per_video = check_grounding(card)
     for dtype, res in vidor.items():
         seconds = res["stage_a_seconds"] + res["stage_b_seconds"]
@@ -1463,6 +1983,16 @@ def main(argv=None):
         log(f"grounding training {dtype}: {res['ms_per_step']} ms/step, "
             f"{res['videos_per_s']} videos/s at B={TR_B} P={TR_P} T={G_T}, "
             f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB; {card}")
+    log(f"BIG-C v10 exp2 B={BATCH} forward + triplets videos/s: float32 "
+        f"{rates['float32']}, bfloat16 {rates['bfloat16']}, int8 features "
+        f"(float32 compute) {rates['int8']}; {card}")
+    for tag, by_dtype in vidor_train.items():
+        for dtype, res in by_dtype.items():
+            log(f"VidOR {tag} training {dtype}: {res['ms_per_step']} "
+                f"ms/step, {res['videos_per_s']} videos/s at B={CLS_BATCH} "
+                f"N=64 T=4096, peak {res['peak_bytes'] / 2 ** 30:.2f} GiB "
+                f"(entry point {res['entry_peak_bytes'] / 2 ** 30:.2f} GiB);"
+                f" {card}")
     for dtype, res in bigc_train.items():
         log(f"BIG-C training {dtype}: {res['ms_per_step']} ms/step, "
             f"{res['videos_per_s']} videos/s at exp2 B={BATCH} N=50 T=256, "

@@ -1,5 +1,6 @@
 """The port's two-stage VidOR entry point against the JAX pipeline on the
-same records, clip features and weights: JAX's BIG-C v7 infer step, its
+same records, clip features and weights: JAX's BIG-C v7 (or, with
+``--use_baseline``, Base-C) infer step on float32 or int8 features, its
 grounding infer step, ``tools/eval_vidor._expand_bins``, its converter and
 its metrics."""
 import json
@@ -19,18 +20,23 @@ from vidsgg_big_tpu.evaluation.convert import EvalFmtCvtor as JaxCvtor
 from vidsgg_big_tpu.evaluation.metrics import (eval_relation_with_gt as
                                                jax_eval_relation)
 from vidsgg_big_tpu.models import BigC as JaxBigC, BigCConfig as JaxBigCConfig
+from vidsgg_big_tpu.models import base_c as jax_base_c
 from vidsgg_big_tpu.models import grounding as jax_grounding
 from vidsgg_big_tpu.train.grounding_data import (
     prepare_grounding_queries as jax_queries)
 from vidsgg_big_tpu.train.grounding_steps import (
     build_grounding_infer_step as jax_grounding_step)
 from vidsgg_big_tpu.train.steps import build_infer_step as jax_infer_step
+from vidsgg_big_tpu.train.steps import (
+    build_basec_infer_step as jax_basec_infer_step)
 from vidsgg_big_tpu.utils.config import parse_config_py
 
 from vidsgg_big_tpu_torch.data.synthetic import clip_features
+from vidsgg_big_tpu_torch.models.base_c import BaseCConfig
 from vidsgg_big_tpu_torch.models.big_c import BigCConfig
 from vidsgg_big_tpu_torch.models.transplant import (
-    bigc_state_dict_from_jax, grounding_state_dict_from_jax)
+    basec_state_dict_from_jax, bigc_state_dict_from_jax,
+    grounding_state_dict_from_jax)
 from vidsgg_big_tpu_torch.tools import eval_vidor
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -75,18 +81,37 @@ def _jax_weights():
         (grd, gparams)
 
 
-def _jax_pipeline(bigc, bparams, grd, gparams):
+def _jax_basec_weights():
+    """JAX Base-C weights at the demo config (a random bias prior) and the
+    port's config."""
+    mc = parse_config_py(CFG)["model_config"]
+    model = jax_base_c.BaseC(jax_base_c.BaseCConfig.from_dict(mc))
+    feat = eval_vidor.SMALL_DIM_FEAT + eval_vidor.DIM_CLASSEME
+    first = next(iter(jax_batches(_records()[:1], JaxBucketSpec(
+        feat_dim=feat), 1, with_gt=False)))
+    params = jax.tree_util.tree_map(
+        np.array, model.init(jax.random.PRNGKey(2), first[2]))
+    params["params"]["bias_matrix"] = np.random.default_rng(4).normal(
+        0, 0.5, params["params"]["bias_matrix"].shape).astype(np.float32)
+    return model, params, BaseCConfig.from_dict(mc)
+
+
+def _jax_pipeline(bigc, bparams, grd, gparams, baseline=False,
+                  feat_dtype="float32"):
     """tools/eval_vidor.py's stages A and B with the JAX package, on the
-    records and clip features the port CLI draws."""
+    records and clip features the port CLI draws; ``bigc`` is the stage-A
+    model (Base-C with ``baseline``)."""
     all_cfgs = parse_config_py(CFG)
     icfg = parse_config_py(GRD_CFG)["inference_config"]
     expand_bins = _jax_expand_bins()
     feat = eval_vidor.SMALL_DIM_FEAT + eval_vidor.DIM_CLASSEME
-    infer = jax_infer_step(bigc, topk=all_cfgs["inference_config"]["topk"])
+    build = jax_basec_infer_step if baseline else jax_infer_step
+    infer = build(bigc, topk=all_cfgs["inference_config"]["topk"])
     results, rows = {}, []
     for _, brows, props, _ in jax_batches(
             _records(), JaxBucketSpec(
-                feat_dim=feat, n_ladder=eval_vidor.STAGE_A_N_LADDER),
+                feat_dim=feat, n_ladder=eval_vidor.STAGE_A_N_LADDER,
+                feat_dtype=feat_dtype),
             BATCH, with_gt=False):
         trip = jax.device_get(infer(bparams, props))
         for i, (p, g) in enumerate(brows):
@@ -165,12 +190,9 @@ def cli_vs_jax(tmp_path_factory):
         jax_metrics
 
 
-def test_cli_predicted_relations_match_jax(cli_vs_jax):
+def _same_relations(port_pred, jax_pred):
     """The same grounded relations in the same order; scores within 1e-5
     (float32 sums in another order), all else exactly equal."""
-    out, port_pred, _, jax_pred, _ = cli_vs_jax
-    assert out["n_videos"] == N_VIDEOS and out["stage_a_batches"] == 2
-    assert out["stage_b_batches"], "no stage-B batch ran"
     assert port_pred.keys() == jax_pred.keys()
     assert sum(len(v) for v in port_pred.values()) > 0
     for vid in jax_pred:
@@ -181,6 +203,15 @@ def test_cli_predicted_relations_match_jax(cli_vs_jax):
                 {k: v for k, v in b.items() if k != "score"}
 
 
+def test_cli_predicted_relations_match_jax(cli_vs_jax):
+    """The same grounded relations in the same order; scores within 1e-5
+    (float32 sums in another order), all else exactly equal."""
+    out, port_pred, _, jax_pred, _ = cli_vs_jax
+    assert out["n_videos"] == N_VIDEOS and out["stage_a_batches"] == 2
+    assert out["stage_b_batches"], "no stage-B batch ran"
+    _same_relations(port_pred, jax_pred)
+
+
 def test_cli_metrics_match_jax(cli_vs_jax):
     _, _, port_metrics, _, (mean_ap, rec_at_n, _) = cli_vs_jax
     assert port_metrics["mAP"] == pytest.approx(mean_ap, abs=1e-12)
@@ -189,7 +220,70 @@ def test_cli_metrics_match_jax(cli_vs_jax):
             rec_at_n[k], abs=1e-12)
 
 
-@pytest.mark.parametrize("flag", ["--use_baseline", "--zeroshot",
+@pytest.mark.parametrize("feat_dtype", ["float32", "int8"])
+def test_cli_baseline_matches_jax(feat_dtype, tmp_path):
+    """--use_baseline: Base-C's stage A (every ordered tracklet pair, the
+    demo config's rt_triplets_topk -1) then grounding, on float32 and on
+    int8 features, against JAX's Base-C infer step and pipeline: the same
+    grounded relations and metrics.  The Base-C weights come as a
+    train_vidor checkpoint directory, the grounding weights as a file."""
+    (grd, gparams) = _jax_weights()[1]
+    model, params, cfg = _jax_basec_weights()
+    ckpt_dir = tmp_path / "checkpoints_base_torch"
+    ckpt_dir.mkdir()
+    torch.save({"model": basec_state_dict_from_jax(params, cfg)},
+               ckpt_dir / "ckpt_3.pt")
+    torch.save(grounding_state_dict_from_jax(gparams), tmp_path / "grd.pth")
+    out = eval_vidor.main([
+        "--use_baseline", "--cfg_path", CFG, "--grounding_cfg_path",
+        GRD_CFG, "--synthetic", str(N_VIDEOS), "--batch_size", str(BATCH),
+        "--device", "cpu", "--ckpt_path", str(ckpt_dir),
+        "--grounding_ckpt_path", str(tmp_path / "grd.pth"),
+        "--feat_dtype", feat_dtype, "--output_dir", str(tmp_path),
+        "--metrics_json", str(tmp_path / "m.json"), "--save_json_results"])
+    with open(tmp_path / "VidORval_predict_relations_torch.json") as f:
+        port_pred = json.load(f)
+    with open(tmp_path / "m.json") as f:
+        port_metrics = json.load(f)
+    jax_pred, (mean_ap, rec_at_n, _) = _jax_pipeline(
+        model, params, grd, gparams, baseline=True, feat_dtype=feat_dtype)
+    assert out["n_videos"] == N_VIDEOS and out["stage_b_batches"]
+    assert len(out["stage_a_triplets"]) == N_VIDEOS
+    _same_relations(port_pred, json.loads(json.dumps(jax_pred)))
+    assert port_metrics["mAP"] == pytest.approx(mean_ap, abs=1e-12)
+    assert port_metrics["recall"]["50"] == pytest.approx(rec_at_n[50],
+                                                         abs=1e-12)
+
+
+def test_cli_int8_stage_a_matches_jax(tmp_path):
+    """--feat_dtype int8 on BIG-C v7: stage A alone (no grounding config)
+    scores the same relations as JAX's int8 stage A."""
+    (bigc, bparams, cfg), _ = _jax_weights()
+    torch.save(bigc_state_dict_from_jax(bparams, cfg), tmp_path / "v7.pth")
+    eval_vidor.main([
+        "--cfg_path", CFG, "--synthetic", str(N_VIDEOS), "--batch_size",
+        str(BATCH), "--device", "cpu", "--ckpt_path",
+        str(tmp_path / "v7.pth"), "--feat_dtype", "int8", "--output_dir",
+        str(tmp_path), "--save_json_results"])
+    with open(tmp_path / "VidORval_predict_relations_torch.json") as f:
+        port_pred = json.load(f)
+    infer = jax_infer_step(bigc, topk=parse_config_py(CFG)[
+        "inference_config"]["topk"])
+    cvt, jax_pred = JaxCvtor("vidor"), {}
+    feat = eval_vidor.SMALL_DIM_FEAT + eval_vidor.DIM_CLASSEME
+    for _, brows, props, _ in jax_batches(
+            _records(), JaxBucketSpec(
+                feat_dim=feat, n_ladder=eval_vidor.STAGE_A_N_LADDER,
+                feat_dtype="int8"), BATCH, with_gt=False):
+        assert props.feats.dtype == np.int8
+        trip = jax.device_get(infer(bparams, props))
+        for i, (p, _) in enumerate(brows):
+            jax_pred.update(cvt.to_eval_format_pr(p, jax.tree_util.tree_map(
+                lambda x: np.asarray(x[i]), trip)))
+    _same_relations(port_pred, json.loads(json.dumps(jax_pred)))
+
+
+@pytest.mark.parametrize("flag", ["--mesh=2", "--zeroshot",
                                   "--save_hit_infos"])
 def test_cli_left_out_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``data/bucketing.py``.  Each (N_traj, T_frames)
 bucket is one padded batch shape; videos are padded up to their bucket.
-Packing is float32 numpy; the feature dtype is applied after the copy to
-the device (``TrackletBatch.to``).
+Packing is numpy, float32 or int8 (``BucketSpec.feat_dtype``); a
+low-precision float dtype is applied after the copy to the device
+(``TrackletBatch.to``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ class BucketSpec:
     tg_bucket: int = 4096         # GT per-frame box storage
     p_bucket: int = 128           # GT predicates
     feat_dim: int = 0
+    # the features' dtype: int8 is packed with a scale per video; float
+    # dtypes pack float32 and are cast after the copy (TrackletBatch.to)
+    feat_dtype: str = "float32"
 
     def bucket_of(self, prop: VideoProposalRecord) -> Tuple[int, int]:
         n = pick(max(prop.num_proposals, 1), self.n_ladder)
@@ -113,8 +117,9 @@ def bucketed_batches(items: Iterable, spec: BucketSpec, batch_size: int,
     """
     def emit(key, rows, n_real):
         n, t = key[0], key[1]
-        props = stack_batches([pack_proposal(r[0], n, t, spec.feat_dim)
-                               for r in rows])
+        dtype = np.int8 if spec.feat_dtype == "int8" else np.float32
+        props = stack_batches([pack_proposal(r[0], n, t, spec.feat_dim,
+                                             dtype) for r in rows])
         real = np.arange(len(rows)) < n_real
         if n_real < len(rows):
             props = props.replace(traj_mask=props.traj_mask & real[:, None])

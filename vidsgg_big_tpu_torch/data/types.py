@@ -5,9 +5,10 @@ Port of the JAX package's ``data/types.py``:
   * :class:`VideoProposalRecord` / :class:`VideoGTRecord`: plain numpy,
     variable shape, used on the host for data prep and eval conversion.
   * :class:`TrackletBatch` / :class:`GraphBatch`: padded, masked batches of
-    one ``(N_bucket, T_bucket)`` shape.  Packing is numpy on the host (float32
-    features); ``.to(device)`` makes every leaf a tensor on the device, and
-    a low-precision feature dtype is applied there, after the copy.
+    one ``(N_bucket, T_bucket)`` shape.  Packing is numpy on the host
+    (float32 features, or int8 with a per-video scale); ``.to(device)``
+    makes every leaf a tensor on the device, and a low-precision float
+    feature dtype is applied there, after the copy.
 
 Boxes are stored relative to each trajectory (frame 0 = trajectory start) and
 un-stretched; ``stretch_idx`` carries the reference's repeat-padding gather.
@@ -84,18 +85,22 @@ class _Batch:
     def to(self, device, **dtypes):
         """Every leaf as a tensor on ``device``; ``dtypes`` maps a field
         name to the dtype it takes after the copy (e.g. ``feats=
-        torch.bfloat16``)."""
+        torch.bfloat16``).  int8 features keep their dtype: their scale is
+        per video, so no cast after the copy can make them."""
         out = {}
         for f in dataclasses.fields(self):
             x = torch.as_tensor(getattr(self, f.name)).to(device)
-            out[f.name] = x.to(dtypes[f.name]) if f.name in dtypes else x
+            if f.name in dtypes and x.dtype != torch.int8:
+                x = x.to(dtypes[f.name])
+            out[f.name] = x
         return type(self)(**out)
 
 
 @dataclasses.dataclass
 class TrackletBatch(_Batch):
     """Padded tracklet proposals.  Leading batch axis optional (stack to add)."""
-    feats: np.ndarray        # (N, T, D) float32, raw (un-stretched), 0-padded
+    feats: np.ndarray        # (N, T, D) raw (un-stretched), 0-padded;
+    #                          float32, or int8 x feat_scale
     boxes: np.ndarray        # (N, T, 4) float32, relative frames, 0-padded
     stretch_idx: np.ndarray  # (N, T) int32 repeat-padding gather index
     durations: np.ndarray    # (N, 2) int32 closed absolute
@@ -104,6 +109,8 @@ class TrackletBatch(_Batch):
     traj_mask: np.ndarray    # (N,) bool
     video_len: np.ndarray    # () int32
     video_wh: np.ndarray     # (2,) float32 (w, h)
+    feat_scale: np.ndarray = np.float32(1.0)   # () float32 dequant scale
+    #                                            of int8 features
 
 
 @dataclasses.dataclass
@@ -119,20 +126,39 @@ class GraphBatch(_Batch):
     adj: np.ndarray             # (2, P, G) float32
 
 
-def pad_pack(trajs, n_bucket: int, t_bucket: int) -> np.ndarray:
-    """trajs: list of (L_i, D) float arrays -> (n_bucket, t_bucket, D)
-    float32, zero-padded and truncated to ``t_bucket`` rows."""
+def pad_pack(trajs, n_bucket: int, t_bucket: int,
+             dtype=np.float32) -> np.ndarray:
+    """trajs: list of (L_i, D) arrays -> (n_bucket, t_bucket, D) of
+    ``dtype``, zero-padded and truncated to ``t_bucket`` rows."""
     d = trajs[0].shape[1] if trajs else 0
-    dst = np.zeros((n_bucket, t_bucket, d), np.float32)
+    dst = np.zeros((n_bucket, t_bucket, d), dtype)
     for i, x in enumerate(trajs):
         L = min(x.shape[0], t_bucket)
         dst[i, :L] = x[:L]
     return dst
 
 
+def quantize_feats(trajs):
+    """int8 feature storage (JAX ``data/types.py:162-168``): a per-video
+    symmetric absmax scale, round to nearest even, clipped to +-127.
+    ``trajs`` are the video's float32 (L_i, D) tracklet features as they
+    are packed; the zero padding quantizes to 0 and does not move the
+    absmax, so JAX's pass over the padded tensor gives the same bytes.
+    Returns ([int8 (L_i, D)], float32 scale)."""
+    absmax = max((np.abs(x).max() for x in trajs if x.size),
+                 default=np.float32(0.0))
+    scale = np.float32(max(absmax / 127.0, 1e-12))
+    return [np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+            for x in trajs], scale
+
+
 def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
-                  feat_dim: int) -> TrackletBatch:
-    """Pad one video's proposals into a fixed (N, T) bucket (numpy leaves)."""
+                  feat_dim: int, dtype=np.float32) -> TrackletBatch:
+    """Pad one video's proposals into a fixed (N, T) bucket (numpy leaves).
+
+    ``dtype`` float32 or int8 (:func:`quantize_feats`, on the host, since
+    the scale is per video); low-precision float storage is a cast after
+    the copy (``TrackletBatch.to``)."""
     n = rec.num_proposals
     if n > n_bucket:
         raise ValueError(f"{rec.video_name}: {n} proposals > bucket "
@@ -148,14 +174,20 @@ def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
         durations[i] = rec.durations[i]
         # clamp duration if the trajectory was truncated by the bucket
         durations[i, 1] = durations[i, 0] + L - 1
+    if np.dtype(dtype) not in (np.float32, np.int8):
+        raise ValueError(f"pack_proposal stores float32 or int8 features, "
+                         f"not {np.dtype(dtype)}")
+    trajs = [np.asarray(f[:t_bucket], np.float32) for f in rec.features]
+    feat_scale = np.float32(1.0)
+    if np.dtype(dtype) == np.int8:
+        trajs, feat_scale = quantize_feats(trajs)
     if n == 0:
         # zero-proposal videos occur in real splits: size the empty arrays
         # from feat_dim, not from the (empty) record
-        feats = np.zeros((n_bucket, t_bucket, feat_dim), np.float32)
+        feats = np.zeros((n_bucket, t_bucket, feat_dim), dtype)
         boxes = np.zeros((n_bucket, t_bucket, 4), np.float32)
     else:
-        feats = pad_pack([np.asarray(f[:t_bucket], np.float32)
-                          for f in rec.features], n_bucket, t_bucket)
+        feats = pad_pack(trajs, n_bucket, t_bucket, dtype)
         boxes = pad_pack([np.asarray(b[:t_bucket, :4], np.float32)
                           for b in rec.boxes], n_bucket, t_bucket)
     if feats.shape[-1] != feat_dim:
@@ -169,7 +201,8 @@ def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
         stretch_idx=stretch_index_np(lengths, t_bucket), durations=durations,
         cat_ids=cat_ids, scores=scores, traj_mask=mask,
         video_len=np.asarray(rec.video_len, np.int32),
-        video_wh=np.asarray(rec.video_wh, np.float32))
+        video_wh=np.asarray(rec.video_wh, np.float32),
+        feat_scale=np.asarray(feat_scale, np.float32))
 
 
 def pack_gt(rec: VideoGTRecord, g_bucket: int, tg_bucket: int,

@@ -13,6 +13,11 @@ a whole bucket of B videos:
     -> transformer encoder over the N tracklet tokens (masked)
     -> role-factored query decoder producing soft adjacency (B, 2, Q, N)
     -> prediction head (I3D / classeme gathers + frequency-bias logits)
+
+int8 feature storage (``pack_proposal(dtype=np.int8)``, a scale per video
+in ``feat_scale``) runs the encoder's first visual layer as an int8 product
+at inference, and is dequantized once up front in train mode (JAX
+``big_c.py:106-116, 198-207, 270-278, 321-324``).
 """
 from __future__ import annotations
 
@@ -104,6 +109,22 @@ class BigCConfig:
         )
 
 
+def scale_like(feat_scale, ndim: int):
+    """The per-video ``feat_scale`` (B,) reshaped to broadcast against a
+    tensor of ``ndim`` dimensions led by the batch axis."""
+    return feat_scale.reshape(feat_scale.shape
+                              + (1,) * (ndim - feat_scale.dim()))
+
+
+def dequantize_extra(extra, feat_scale):
+    """int8-stored aux channels times their per-video scale, float32 (JAX
+    ``big_c.py:106-116``); float inputs pass unchanged.  Shared by BigC and
+    BaseC."""
+    if extra.dtype != torch.int8:
+        return extra
+    return extra.to(torch.float32) * scale_like(feat_scale, extra.dim())
+
+
 def geometry_features(batch: TrackletBatch):
     """Per-frame 8-dim box geometry, stretched to the bucket length.
 
@@ -155,9 +176,19 @@ class TrackletEncoder(nn.Module):
         # the stretch gather commutes with the per-frame MLPs (both are
         # rowwise), so the wide matmuls run on the raw frames
         geo = geometry_features(batch)                        # (B, N, T, 8)
-        x_geo = self.fc_bbox2enti(geo.to(cdt))
-        x_vis = self.fc_feat2enti(batch.feats[..., :self.dim_feat].to(cdt))
-        x = torch.cat([x_geo, x_vis], dim=-1)                 # (B, N, T, 2E)
+        x_geo = self.fc_bbox2enti(geo.to(cdt))                # cdt
+        visual = batch.feats[..., :self.dim_feat]
+        if visual.dtype == torch.int8:
+            # int8 storage (JAX :198-207): the first layer is an int8
+            # product over the per-video scale and returns bfloat16, the
+            # second runs in bfloat16 (JAX MLP), so x_vis is bfloat16
+            x_vis = self.fc_feat2enti(visual, input_scale=scale_like(
+                batch.feat_scale, visual.dim()))
+        else:
+            x_vis = self.fc_feat2enti(visual.to(cdt))         # cdt
+        # JAX's concat promotes (bf16, f32) to float32, which is cdt under
+        # float32 compute; under bfloat16 compute both halves are bf16
+        x = torch.cat([x_geo, x_vis.to(cdt)], dim=-1)         # (B, N, T, 2E)
         bsz, n, t, _ = x.shape
         patches = stretch_conv_patches(x.reshape(bsz * n, t, -1),
                                        batch.stretch_idx.reshape(bsz * n, t))
@@ -265,6 +296,12 @@ class BigC(TrackletEncoder):
                 f"feature dim {width} does not fit dim_feat {cfg.dim_feat} "
                 f"+ {consumed} channels the head reads; check dataset fmt "
                 "vs config")
+        if batch.feats.dtype == torch.int8 and self.training:
+            # int8 storage is a serving path; training dequantizes the whole
+            # feature tensor once, in the compute dtype (JAX :270-278)
+            cdt = self.compute_dtype
+            batch = batch.replace(feats=batch.feats.to(cdt) * scale_like(
+                batch.feat_scale, batch.feats.dim()).to(cdt))
         enti2enco = self.encode(batch)
         mask = batch.traj_mask
         out = enti2enco
@@ -284,8 +321,9 @@ class BigC(TrackletEncoder):
             # the reference averages over the *stretched* axis
             # (model_0v10.py:470): a repeat-counts-weighted raw-frame mean
             lengths = batch.durations[..., 1] - batch.durations[..., 0] + 1
-            extra_avg = stretch_weighted_mean(
-                batch.feats[..., cfg.dim_feat:expect], lengths)
+            extra_avg = stretch_weighted_mean(dequantize_extra(
+                batch.feats[..., cfg.dim_feat:expect], batch.feat_scale),
+                lengths)
         pred_logits = self._prediction_head(
             pred_queries, att, batch.cat_ids, extra_avg, enti2enco)
         return {"pred_queries": pred_queries, "pred_logits": pred_logits,

@@ -8,7 +8,10 @@ flax's epsilon of 1e-6.  Every layer takes a (B, ...) batch with validity
 masks, so a whole bucket of videos is one call.  In train mode every
 dropout (JAX ``models/layers.py:142, 164-172, 239``) draws from the
 ``generator`` handed to the forward, never from torch's global stream, so a
-step's randomness is a function of that generator alone.
+step's randomness is a function of that generator alone.  An int8 input
+to an :class:`MLP` (int8 feature storage) runs its first layer as an int8
+product with int32 accumulation (JAX ``Int8Dense``, ``models/layers.py:
+53-79``) and the later layers in bfloat16.
 """
 from __future__ import annotations
 
@@ -47,10 +50,60 @@ def sine_pos_embedding(length: int, d_model: int) -> np.ndarray:
     return np.sin(pos * freqs[None, :] + phases[None, :]).astype(np.float32)
 
 
+def check_int_mm_shape(m: int, k: int, n: int) -> None:
+    """``torch._int_mm``'s shape rules on CUDA: more than 16 rows, K and
+    N positive multiples of 8.  Raises naming the product's shape."""
+    if m <= 16 or k <= 0 or k % 8 or n <= 0 or n % 8:
+        raise ValueError(
+            f"int8 product ({m} x {k}) @ ({k} x {n}): torch._int_mm on CUDA "
+            "needs more than 16 rows and K, N positive multiples of 8")
+
+
+def quantize_weight(weight):
+    """Per-output quantization of an ``nn.Linear`` weight (out, in), as
+    JAX ``Int8Dense`` quantizes its (in, out) kernel per column: ``sw =
+    max|W| / 127`` (out,), differentiable, and ``kq = round(W / sw)`` int8
+    (out, in), which carries no gradient (JAX's int8 cast has none)."""
+    absmax = weight.abs().amax(dim=1)
+    # a tensor divisor: CUDA turns division by a Python scalar into a
+    # product with its reciprocal, which rounds differently from JAX's
+    # division (and the CPU's)
+    sw = absmax / torch.full_like(absmax, 127.0)
+    with torch.no_grad():
+        kq = torch.round(weight / sw[:, None]).to(torch.int8)
+    return sw, kq
+
+
+def int8_accumulate(x, kq):
+    """``x`` (..., K) int8 @ ``kq.T`` (K, N) with int32 accumulation
+    (``torch._int_mm`` on the card and on the CPU): (..., N) int32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        check_int_mm_shape(x2.shape[0], x2.shape[1], kq.shape[0])
+    # kq.t() is K-major (column-major (K, N)), the layout cuBLASLt's int8
+    # product takes
+    acc = torch._int_mm(x2, kq.t())
+    return acc.reshape(*x.shape[:-1], kq.shape[0])
+
+
+def int8_linear(layer: nn.Linear, x, input_scale):
+    """JAX ``Int8Dense``: ``y = acc * (input_scale * sw) + bias`` in
+    float32 over the int32 accumulator, returned in bfloat16 as JAX does.
+    ``input_scale`` broadcasts against ``x`` without its last axis."""
+    if x.dtype != torch.int8:
+        raise TypeError(f"int8_linear takes int8 input, not {x.dtype}")
+    sw, kq = quantize_weight(layer.weight)
+    acc = int8_accumulate(x, kq)
+    y = acc.to(torch.float32) * (input_scale * sw) + layer.bias
+    return y.to(torch.bfloat16)
+
+
 class MLP(nn.Sequential):
     """Linear->ReLU stacks (fc_feat2enti etc.), indexed as the reference's
     ``nn.Sequential``: Linear at 0, 2, ...; ReLU after each but the last
-    unless ``final_relu``.  A low-precision input runs in its dtype."""
+    unless ``final_relu``.  A low-precision input runs in its dtype; an int8
+    input takes :func:`int8_linear` at the first layer (``input_scale`` its
+    dequantization scale) and bfloat16 after it (JAX ``MLP`` :99-106)."""
 
     def __init__(self, in_dim: int, features, final_relu: bool = True):
         mods, d = [], in_dim
@@ -61,9 +114,14 @@ class MLP(nn.Sequential):
             d = f
         super().__init__(*mods)
 
-    def forward(self, x):
-        for m in self:
-            x = _linear(m, x) if isinstance(m, nn.Linear) else m(x)
+    def forward(self, x, input_scale=None):
+        for i, m in enumerate(self):
+            if i == 0 and x.dtype == torch.int8:
+                if input_scale is None:
+                    raise ValueError("an int8 MLP input needs its scale")
+                x = int8_linear(m, x, input_scale)
+            else:
+                x = _linear(m, x) if isinstance(m, nn.Linear) else m(x)
         return x
 
 

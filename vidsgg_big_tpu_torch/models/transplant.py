@@ -1,7 +1,9 @@
-"""JAX-parameter -> port ``state_dict`` conversion (BIG-C and grounding).
+"""JAX-parameter -> port ``state_dict`` conversion (BIG-C, Base-C and
+grounding).
 
-The exact inverses of ``bigc_params_from_torch`` and
-``grounding_params_from_torch`` in the JAX package's ``models/transplant.py``:
+The exact inverses of ``bigc_params_from_torch``,
+``basec_params_from_torch`` and ``grounding_params_from_torch`` in the JAX
+package's ``models/transplant.py`` (:79, :151-172, :224):
 the port keeps the reference torch parameter names and layouts, so these
 are layout conversions only.
 
@@ -77,12 +79,7 @@ def bigc_state_dict_from_jax(params, cfg, tables=None):
     p = params["params"]
     te = p["tracklet_encoder"]
     out = {}
-    _mlp(out, "fc_bbox2enti", te["fc_bbox2enti"], (0, 2))
-    _mlp(out, "fc_feat2enti", te["fc_feat2enti"], (0, 2))
-    out["conv_feat2enti.weight"] = _t(
-        np.asarray(te["conv_feat2enti"]["kernel"]).transpose(2, 1, 0))
-    out["conv_feat2enti.bias"] = _t(te["conv_feat2enti"]["bias"])
-    _enti2enco(out, te["fc_enti2enco"], cfg)
+    _tracklet_encoder(out, te, cfg)
     for i in range(cfg.n_enco_layers):
         src, t = p[f"encoder{i}"], f"encoder_layers.{i}"
         _mha(out, f"{t}.self_attn", src["self_attn"])
@@ -116,6 +113,35 @@ def bigc_state_dict_from_jax(params, cfg, tables=None):
         out["pos_embedding"] = _t(p["pos_embedding"])
         _dense(out, "fc_pred2logits", p["fc_pred2logits"])
     if cfg.name_emb_in_head:
+        emb = tables.get("enti_name_emb")
+        out["EntiNameEmb"] = (_t(emb) if emb is not None else
+                              torch.zeros(cfg.num_enti_cats, cfg.dim_clsme))
+    return out
+
+
+def _tracklet_encoder(out, te, cfg):
+    """The encoder layers shared by BIG-C and Base-C, at the top level."""
+    _mlp(out, "fc_bbox2enti", te["fc_bbox2enti"], (0, 2))
+    _mlp(out, "fc_feat2enti", te["fc_feat2enti"], (0, 2))
+    out["conv_feat2enti.weight"] = _t(
+        np.asarray(te["conv_feat2enti"]["kernel"]).transpose(2, 1, 0))
+    out["conv_feat2enti.bias"] = _t(te["conv_feat2enti"]["bias"])
+    _enti2enco(out, te["fc_enti2enco"], cfg)
+
+
+def basec_state_dict_from_jax(params, cfg, tables=None):
+    """Port ``state_dict`` of :class:`BaseC` from the JAX ``{"params":
+    ...}`` tree; the inverse of ``basec_params_from_torch``, the encoder's
+    channel-major pooled flatten included.  ``tables`` is the
+    ``{"enti_name_emb": ...}`` dict returned beside the params: a
+    name-embedding head without it gets a zero ``EntiNameEmb``."""
+    tables = tables or {}
+    p = params["params"]
+    out = {}
+    _tracklet_encoder(out, p["tracklet_encoder"], cfg)
+    out["bias_matrix"] = _t(p["bias_matrix"])
+    _mlp(out, "fc_pred2logits", p["fc_pred2logits"], (0, 2))
+    if cfg.use_clsme and cfg.use_name_emb:
         emb = tables.get("enti_name_emb")
         out["EntiNameEmb"] = (_t(emb) if emb is not None else
                               torch.zeros(cfg.num_enti_cats, cfg.dim_clsme))

@@ -1,7 +1,7 @@
-"""Evaluate on VidOR with the port: BIG-C v7 classification (stage A), then,
-with a grounding config, the grounding model's multi-bin temporal
-localisation of every predicted triplet (stage B), then the VidOR
-relation-detection metrics.
+"""Evaluate on VidOR with the port: BIG-C v7 (or, with ``--use_baseline``,
+Base-C) classification (stage A), then, with a grounding config, the
+grounding model's multi-bin temporal localisation of every predicted
+triplet (stage B), then the VidOR relation-detection metrics.
 
 Counterpart of the JAX package's ``tools/eval_vidor.py`` (the paper's
 classification-then-grounding evaluation; its GT comes from the records'
@@ -12,9 +12,14 @@ own graphs).  Run as
         --grounding_cfg_path experiments/grounding_weights/config_.py \\
         --synthetic 8 --synthetic_model_dims --batch_size 4 [--device cpu]
 
-This slice reads no dataset from disk: ``--synthetic N`` draws N in-memory
-VidOR-shaped records and their I3D clip features from ``data/synthetic``.
-Reading the on-disk VidOR splits is ROADMAP item A8.
+or, for the paper's table-2 baseline, ``--use_baseline --cfg_path
+experiments/exp6/config_rt200.py``.  ``--ckpt_path`` takes a reference-named
+``state_dict`` file or a ``tools/train_vidor`` checkpoint directory (its
+newest ``ckpt_*.pt``); ``--feat_dtype int8`` stores the stage-A features as
+int8 with a scale per video.  This slice reads no dataset from disk:
+``--synthetic N`` draws N in-memory VidOR-shaped records and their I3D
+clip features (``data/synthetic_vidor``).  Reading the on-disk VidOR
+splits is ROADMAP item A8.
 """
 from __future__ import annotations
 
@@ -28,45 +33,32 @@ import numpy as np
 import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches, pick_unbounded
-from ..data.synthetic import clip_features, make_vidor_video, num_clips
+from ..data.synthetic import clip_features, num_clips
+from ..data.synthetic_vidor import (  # noqa: F401 (the CLIs' recipe)
+    DIM_CLASSEME, FULL_SIZE_RECIPE, SMALL_DIM_FEAT, record_feat_dim,
+    synthetic_records)
 from ..evaluation.convert import EvalFmtCvtor
 from ..evaluation.metrics import eval_relation_with_gt
-from ..models.big_c import BigCConfig
+from ..models.base_c import BaseC, BaseCConfig
+from ..models.big_c import BigCConfig, load_bias_matrix
 from ..models.grounding import GroundingConfig, GroundingModel
 from ..models.transplant import strip_module_prefix
 from ..train.grounding_data import prepare_grounding_queries
 from ..train.grounding_steps import build_grounding_infer_step
-from ..train.steps import build_infer_step
+from ..train.steps import build_basec_infer_step, build_infer_step
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
 from ..utils.logger import create_logger
-from .eval_vidvrd import WEIGHT_SEED, build_model
+from .eval_vidvrd import WEIGHT_SEED, load_table, build_model, load_state
 
 # stage A packs tracklets on this ladder (the JAX CLI's :71-72)
 STAGE_A_N_LADDER = (8, 16, 32, 64, 128, 192)
-# full-size VidOR-shaped videos: 2,400 frames (299 I3D clips, the T=512
-# grounding bucket), 12 GT + 34 distractor tracklets (46, the N=64 bucket)
-FULL_SIZE_RECIPE = dict(video_len=2400, n_gt_trajs=12, n_preds=16,
-                        n_distractors=34)
-# RoI width without --synthetic_model_dims (the JAX synthetic VidOR
-# default); VidOR features always carry 300 classeme channels after it
-SMALL_DIM_FEAT = 64
-DIM_CLASSEME = 300
 STAGE_B_MIN_BATCH = 4
 # flags of the JAX CLI that this slice leaves out, with their ROADMAP item
-LEFT_OUT = {"use_baseline": "A7b (Base-C)", "mesh": "A9 (multi-GPU)",
+LEFT_OUT = {"mesh": "A9 (multi-GPU)",
             "zeroshot": "A10 (zero-shot eval)",
             "gt_json": "A8 (on-disk data)",
             "save_hit_infos": "A10 (hit infos)"}
-
-
-def synthetic_records(n_videos: int, dim_feat: int, model_dims: bool):
-    """(proposal, GT) records, generated lazily; video i is seeded with i
-    and named ``synth_{i:06d}``."""
-    feat = (dim_feat if model_dims else SMALL_DIM_FEAT) + DIM_CLASSEME
-    recipe = FULL_SIZE_RECIPE if model_dims else {}
-    return (make_vidor_video(i, feat_dim=feat, **recipe)
-            for i in range(n_videos))
 
 
 def _synthetic_seed(video_name: str) -> int:
@@ -84,26 +76,48 @@ def build_grounding_model(cfg: GroundingConfig, ckpt_path=None):
     return model
 
 
+def build_basec_model(cfg: BaseCConfig, model_config: dict, ckpt_path=None,
+                      seed: int = WEIGHT_SEED) -> BaseC:
+    """BaseC on the CPU: random weights from ``seed`` and the config's name
+    and bias tables (zeros where their files are absent, as the JAX CLI's
+    ``load_tables``), or the weights of a checkpoint file or directory
+    (``eval_vidvrd.load_state``)."""
+    e, c = cfg.num_enti_cats, cfg.num_pred_cats
+    model = BaseC(cfg, enti_name_emb=load_table(model_config.get(
+        "EntiNameEmb_path"), (e, cfg.dim_clsme)),
+        generator=torch.Generator().manual_seed(seed))
+    load_bias_matrix(model, load_table(model_config.get("bias_matrix_path"),
+                                   (e, e, c)))
+    if ckpt_path:
+        model.load_state_dict(load_state(ckpt_path), strict=True)
+    return model
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def classify(args, logger, all_cfgs, records, device):
-    """Stage A: BIG-C v7 inference -> ({video: Triplets (numpy)}, light
-    rows (proposal without features, GT), stats)."""
+    """Stage A: BIG-C v7 (or Base-C) inference -> ({video: Triplets
+    (numpy)}, light rows (proposal without features, GT), stats)."""
     mc = all_cfgs["model_config"]
     if args.compute_dtype:
         mc = dict(mc, compute_dtype=args.compute_dtype)
     topk = args.topk or all_cfgs.get("inference_config", {}).get("topk", 10)
-    cfg = BigCConfig.from_dict(mc, variant="v7")
-    feat = (cfg.dim_feat if args.synthetic_model_dims else SMALL_DIM_FEAT) \
-        + DIM_CLASSEME
-    spec = BucketSpec(feat_dim=feat, n_ladder=STAGE_A_N_LADDER)
-    model = build_model(cfg, mc, args.ckpt_path)
+    if args.use_baseline:
+        cfg = BaseCConfig.from_dict(mc)
+        model = build_basec_model(cfg, mc, args.ckpt_path)
+        infer = build_basec_infer_step(model.to(device), topk=topk)
+    else:
+        cfg = BigCConfig.from_dict(mc, variant="v7")
+        model = build_model(cfg, mc, args.ckpt_path)
+        infer = build_infer_step(model.to(device), topk=topk)
     if args.ckpt_path:
         logger.info(f"loaded stage-A checkpoint {args.ckpt_path}")
-    infer = build_infer_step(model.to(device), topk=topk)
+    spec = BucketSpec(feat_dim=record_feat_dim(cfg.dim_feat,
+                                               args.synthetic_model_dims),
+                      n_ladder=STAGE_A_N_LADDER, feat_dtype=args.feat_dtype)
     feat_dtype = getattr(torch, args.feat_dtype)
     results, rows = {}, []
     n_batches, seconds = 0, 0.0
@@ -122,8 +136,11 @@ def classify(args, logger, all_cfgs, records, device):
             rows.append((dataclasses.replace(prop, features=[]), gt))
     logger.info(f"stage A done on {len(results)} videos in {n_batches} "
                 f"batches, {seconds:.3f} s in forward + triplets")
+    # unique valid triplets per video: stage B's query count
+    triplets = [int(results[p.video_name].valid.sum()) for p, _ in rows]
     return results, rows, dict(stage_a_batches=n_batches,
-                               stage_a_seconds=seconds)
+                               stage_a_seconds=seconds,
+                               stage_a_triplets=triplets)
 
 
 def _expand_bins(prop, quint, scores3, duras, pooled, bins_probs, bins_mask):
@@ -286,7 +303,11 @@ def inference_then_eval(args) -> dict:
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cfg_path", type=str, required=True,
-                        help="stage-A (BIG-C v7) experiment config")
+                        help="stage-A (BIG-C v7, or Base-C with "
+                             "--use_baseline) experiment config")
+    parser.add_argument("--use_baseline", action="store_true",
+                        help="stage A is Base-C, the pairwise baseline "
+                             "(exp6)")
     parser.add_argument("--grounding_cfg_path", type=str, default=None,
                         help="stage-B grounding config; without it the "
                              "stage-A triplets are scored as they are")
@@ -294,9 +315,10 @@ def parse_args(argv=None):
                  "('module.' prefixes are stripped); default: random "
                  "weights from a fixed seed")
     parser.add_argument("--ckpt_path", type=str, default=None,
-                        help=ckpt_help + ".  A v7 checkpoint carries its "
-                             "frozen pos_embedding table, so no "
-                             "--tables_path is needed")
+                        help=ckpt_help + ", or a train_vidor checkpoint "
+                             "directory (its newest ckpt_*.pt).  A v7 "
+                             "checkpoint carries its frozen pos_embedding "
+                             "table, so no --tables_path is needed")
     parser.add_argument("--grounding_ckpt_path", type=str, default=None,
                         help=ckpt_help)
     parser.add_argument("--output_dir", type=str, default=None,
@@ -313,9 +335,12 @@ def parse_args(argv=None):
                         help="write {mAP, recall@K, tagging P@K} as JSON")
     parser.add_argument("--save_json_results", action="store_true")
     parser.add_argument("--feat_dtype", type=str, default="float32",
-                        choices=("float32", "bfloat16"),
-                        help="stage-A feature dtype on the device (packing "
-                             "is float32; the cast follows the copy)")
+                        choices=("float32", "bfloat16", "int8"),
+                        help="stage-A feature dtype on the device: bfloat16 "
+                             "is a cast after the copy; int8 is packed on "
+                             "the host with a scale per video, and the "
+                             "encoder's first visual layer runs as an int8 "
+                             "product")
     parser.add_argument("--compute_dtype", type=str, default=None,
                         choices=("float32", "bfloat16"),
                         help="override the compute dtype of both stages "

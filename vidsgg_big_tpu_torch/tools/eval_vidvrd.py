@@ -13,7 +13,9 @@ records from ``data/synthetic.make_video``, as bench.py does.  Reading the
 on-disk VidVRD splits is a later slice of the port.  ``--ckpt_path`` takes a
 reference-named ``state_dict`` file or the checkpoint directory of
 ``tools/train_vidvrd`` (its newest ``ckpt_*.pt``), as the JAX CLI serves
-its trainer's checkpoints.
+its trainer's checkpoints.  ``--feat_dtype int8`` is exp2's quantized
+serving path: features packed as int8 with a scale per video, the
+encoder's first visual layer an int8 product.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def synthetic_records(n_videos: int, cfg: BigCConfig, model_dims: bool):
     return (data[i] for i in range(n_videos)), data.feat_dim
 
 
-def _table(path, shape):
+def load_table(path, shape):
     """A .npy table from the config, or zeros where it is absent."""
     if path and os.path.exists(path):
         arr = np.load(path).astype(np.float32)
@@ -79,10 +81,10 @@ def build_model(cfg: BigCConfig, model_config: dict, ckpt_path=None,
     and bias tables (zeros where their files are absent), or the weights of
     a checkpoint (:func:`load_state`)."""
     e, c = cfg.num_enti_cats, cfg.num_pred_cats
-    model = BigC(cfg, enti_name_emb=_table(model_config.get(
+    model = BigC(cfg, enti_name_emb=load_table(model_config.get(
         "EntiNameEmb_path"), (e, cfg.dim_clsme)),
         generator=torch.Generator().manual_seed(seed))
-    load_bias_matrix(model, _table(model_config.get("bias_matrix_path"),
+    load_bias_matrix(model, load_table(model_config.get("bias_matrix_path"),
                                    (e, e, c)))
     if ckpt_path:
         model.load_state_dict(load_state(ckpt_path), strict=True)
@@ -107,7 +109,7 @@ def inference_then_eval(args) -> dict:
                          "pass --synthetic N")
     records, feat_dim = synthetic_records(args.synthetic, cfg,
                                           args.synthetic_model_dims)
-    spec = BucketSpec(feat_dim=feat_dim, **(
+    spec = BucketSpec(feat_dim=feat_dim, feat_dtype=args.feat_dtype, **(
         FULL_SIZE_BUCKETS if args.synthetic_model_dims else {}))
 
     model = build_model(cfg, model_config, args.ckpt_path)
@@ -182,9 +184,12 @@ def parse_args(argv=None):
                         help="write {mAP, recall@K, tagging P@K} as JSON")
     parser.add_argument("--save_json_results", action="store_true")
     parser.add_argument("--feat_dtype", type=str, default="float32",
-                        choices=("float32", "bfloat16"),
-                        help="feature dtype on the device (packing is "
-                             "float32; the cast follows the copy)")
+                        choices=("float32", "bfloat16", "int8"),
+                        help="feature dtype on the device: bfloat16 is a "
+                             "cast after the copy; int8 is packed on the "
+                             "host with a scale per video, and the "
+                             "encoder's first visual layer runs as an int8 "
+                             "product")
     parser.add_argument("--compute_dtype", type=str, default=None,
                         choices=("float32", "bfloat16"),
                         help="override the model compute dtype "

@@ -88,11 +88,14 @@ def train(args):
                   for m in train_config["epoch_lr_milestones"]]
     state = TrainState(model, train_config["initial_lr"],
                        train_config["lr_decay"], milestones)
+    wire = wire_dtype(args.feat_dtype, cfg.compute_dtype)
+    # int8 features are packed with a scale per video; BigC dequantizes
+    # them once in train mode, so the int8 wire only cuts the H2D bytes
     spec = BucketSpec(feat_dim=dataset.feat_dim, g_bucket=32,
                       p_bucket=model_config.get("max_preds", 128),
+                      feat_dtype=args.feat_dtype or "float32",
                       **(FULL_SIZE_BUCKETS if args.synthetic_model_dims
                          else {}))
-    wire = wire_dtype(args.feat_dtype, cfg.compute_dtype)
 
     ckpt_dir = os.path.join(experiment_dir, f"checkpoints_{args.save_tag}")
     start_epoch, start_batch = 0, 0
@@ -173,7 +176,8 @@ def parse_args(argv=None):
                         choices=("float32", "bfloat16", "int8"),
                         help="feature dtype of a batch (default: bfloat16 "
                              "under bfloat16 compute, else float32); int8 "
-                             "is ROADMAP A7b")
+                             "packs a scale per video and is dequantized "
+                             "once in the model")
     parser.add_argument("--stop_after_batches", type=int, default=0,
                         help="stop as on SIGTERM after this many batches "
                              "(checkpoint, exit 0)")
@@ -193,9 +197,6 @@ def check_args(args):
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.feat_dtype == "int8":
-        raise NotImplementedError("--feat_dtype int8 is not ported yet "
-                                  "(ROADMAP A7b)")
     if not args.synthetic:
         raise SystemExit("this port reads no VidVRD split from disk yet "
                          "(ROADMAP A8); pass --synthetic N")

@@ -80,6 +80,29 @@ Phases; any failure exits non-zero and prints no result line:
         through stage A alone: unique triplets per video and the Q bucket
         stage B would need;
      i-l each in float32 and in bfloat16;
+     m. the on-disk route: splits written in the reference layout under
+        build/chip_smoke/disk with the port's synthetic_raw (exp2 pku_i3d:
+        16 train + 8 test videos at bench.py's full-size recipe; VidOR: 8
+        train videos with their clip features + 4 val videos at the
+        full-size recipe) and copies of the configs pointing at them, read
+        by the entry points without --synthetic; train_vidvrd on exp2's
+        train split, float32, batch 8, 2 epochs, with an 8 GB device cache
+        (epoch 1 from it) and without, the losses bit-equal; the parse,
+        .npz write and .npz load seconds a video, pack seconds and H2D ms,
+        GB and GB/s a batch, step ms, videos/s per epoch, peak memory;
+     n. eval_vidvrd on exp2's test split, cold (parse) then warm (.npz
+        cache): six role-attention launches a forward, videos/s beside
+        3a's in-memory rate; the first batch staged and shipped to the
+        card equal to the CPU's numpy packing of the same files;
+     o. train_vidor's cls mode (exp4) on the VidOR train split, batch 4:
+        bfloat16 over 2 epochs, the default 4 GB device cache completes and
+        the losses are bit-equal with and without it; float32 over 1 epoch,
+        the cache goes over its budget and frees its records (memory
+        allocated at the end within 128 MiB of the run without it);
+     p. eval_vidor on the VidOR val split: stage A's role attention, stage
+        B's composed forward on the clip features read from disk;
+     q. train_vidor --train_grounding on the train split's clip features,
+        bfloat16, one epoch: the composed train forward and backward;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one exp2
@@ -102,6 +125,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -687,7 +711,8 @@ def backward_code(ptxas_log):
 
 def drive_exp2():
     """Phase 3a: exp2 through eval_vidvrd, float32 then bfloat16.  Returns
-    the launch counts of each run, {dtype: {kernel: launches}}."""
+    the launch counts of each run, {dtype: {kernel: launches}}, and each
+    run's result."""
     from vidsgg_big_tpu_torch.tools import eval_vidvrd
     from vidsgg_big_tpu_torch.utils.config import parse_config_py
     n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
@@ -722,7 +747,7 @@ def drive_exp2():
     if launches["role_attention"] == 0:
         raise AssertionError("the exp2 path launched no role-attention "
                              "kernel")
-    return per_run
+    return per_run, results
 
 
 def drive_vidor():
@@ -865,7 +890,6 @@ def drive_train_entry(card):
     after ``stop_after`` steps as on SIGTERM and resumed from the
     checkpoint; bfloat16 at the config's batch 8, float32 at batch 4.
     Returns ({dtype: {kernel: launches}}, {dtype: result})."""
-    import shutil
     from vidsgg_big_tpu_torch.tools import train_vidor
     per_run, results = {}, {}
     for dtype, run in ENTRY_RUNS.items():
@@ -1017,7 +1041,6 @@ def stop_and_resume(what, main, base, out, card, steps=None):
     where None) with a finite journal, the resumed run's journal equals it
     bit for bit, and training launched no kernel.  Returns (kernel
     launches, the uninterrupted run's summary)."""
-    import shutil
     shutil.rmtree(out, ignore_errors=True)
     reset_counts()
     t0 = time.perf_counter()
@@ -1307,6 +1330,390 @@ def serve_vidor_checkpoints(card, ckpts, baseline):
                                  f"launches {counts}")
         per_run["all_triplets_float32"] = counts
     return per_run
+
+
+# ---- the on-disk route (phases 3m-3q) -------------------------------------
+
+DISK_DIR = os.path.join(OUT_DIR, "disk")
+# the splits written in the reference layout: exp2 (pku_i3d) at bench.py's
+# full-size record recipe (46 tracklets of 480-frame videos), VidOR at the
+# in-memory phases' full-size recipe (2,400 frames, 46 tracklets, 299
+# clips).  VidOR's score_th 0.4 keeps the 12 GT tracklets and about 40% of
+# the distractors (N=32 rung), so its float32 records are 0.69 GB at T=4096
+# and the 8 train videos go past the default 4 GB device cache in float32
+# (not in bfloat16)
+EXP2_DISK_TRAIN, EXP2_DISK_TEST = 16, 8
+VIDOR_DISK_TRAIN, VIDOR_DISK_VAL = 8, 4
+# 16 exp2 records on the JAX CLI's default ladder (N=64, T=512) hold 6.0 GB
+# in float32, past the default 4 GB budget: phase 3m gives the cache 8 GB
+EXP2_DISK_CACHE_GB = 8.0
+# the float32 VidOR run whose cache goes over its budget ends with at most
+# this much more memory allocated than the run without a cache (a captured
+# record is 0.35-0.69 GB)
+FREED_SLACK = 128 << 20
+# the dataset-config keys that point a config at a written split
+SPLIT_KEYS = ("ann_dir", "proposal_dir", "i3d_dir", "classeme_dir",
+              "video_feature_dir", "video_dir", "cache_dir", "cache_tag",
+              "dim_boxfeature", "dim_i3d", "fmt")
+
+
+def disk_config(src, name, **splits):
+    """A copy of the config ``src`` whose dataset configs (``splits``:
+    {"train_dataset_config": synthetic_raw's config, ...}) point at the
+    written splits; its thresholds stay the experiment's."""
+    with open(src) as f:
+        text = f.read()
+    text += "\n# the splits chip_smoke.py writes in the reference layout\n"
+    for key, cfg in splits.items():
+        over = {k: cfg[k] for k in SPLIT_KEYS if k in cfg}
+        text += f"{key} = dict({key}, **{over!r})\n"
+    path = os.path.join(DISK_DIR, f"config_{name}_.py")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_disk_splits():
+    """Phase 3m's first step: the exp2 train and test splits and the VidOR
+    train (with clip features) and val splits, written with the port's
+    synthetic_raw; returns {name: config path}."""
+    from vidsgg_big_tpu_torch.data import synthetic_raw
+    from vidsgg_big_tpu_torch.data import synthetic_vidor, synthetic_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    os.makedirs(DISK_DIR)
+    t0 = time.perf_counter()
+    mc = parse_config_py(EXP2_CFG)["model_config"]
+    vrd = dict(fmt="pku_i3d", dim_feat=mc["dim_feat"], dim_i3d=mc["dim_i3d"],
+               **synthetic_vidvrd.FULL_SIZE_RECIPE)
+    root = os.path.join(DISK_DIR, "vidvrd")
+    train = synthetic_raw.write_synthetic_vidvrd(root, EXP2_DISK_TRAIN,
+                                                 "train", **vrd)
+    test = synthetic_raw.write_synthetic_vidvrd(root, EXP2_DISK_TEST, "test",
+                                                **vrd)
+    t1 = time.perf_counter()
+    vor = dict(dim_feat=parse_config_py(EXP4_CFG)["model_config"][
+        "dim_feat"], wh=(640, 360), **synthetic_vidor.FULL_SIZE_RECIPE)
+    root = os.path.join(DISK_DIR, "vidor")
+    vtrain = synthetic_raw.write_synthetic_vidor(root, VIDOR_DISK_TRAIN,
+                                                 "train", seed=0, **vor)
+    vval = synthetic_raw.write_synthetic_vidor(root, VIDOR_DISK_VAL, "val",
+                                               seed=1, **vor)
+    t2 = time.perf_counter()
+    log(f"wrote the on-disk splits: exp2 {EXP2_DISK_TRAIN} train + "
+        f"{EXP2_DISK_TEST} test videos in {t1 - t0:.1f} s, VidOR "
+        f"{VIDOR_DISK_TRAIN} train + {VIDOR_DISK_VAL} val videos in "
+        f"{t2 - t1:.1f} s; {dir_gb(DISK_DIR):.2f} GB")
+    return {"exp2": disk_config(EXP2_CFG, "exp2",
+                                train_dataset_config=train,
+                                test_dataset_config=test),
+            "exp4": disk_config(EXP4_CFG, "exp4",
+                                train_dataset_config=vtrain,
+                                test_dataset_config=vval),
+            "grounding": disk_config(GRD_CFG, "grounding",
+                                     train_dataset_config=vtrain,
+                                     test_dataset_config=vval)}
+
+
+def dir_gb(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+               os.walk(path) for f in fs) / 1e9
+
+
+def spread(xs):
+    """{n, median, min, max} of a list of readings (None if empty)."""
+    if not xs:
+        return None
+    return dict(n=len(xs), median=float(np.median(xs)), min=float(min(xs)),
+                max=float(max(xs)))
+
+
+def journal(out, tag):
+    """{step: value} of one tag of a run's metrics journal."""
+    with open(os.path.join(out, "logfile", "metrics.jsonl")) as f:
+        return {r["step"]: r["value"] for r in map(json.loads, f)
+                if r["tag"] == tag}
+
+
+def pipeline_readings(what, summary, out, card):
+    """Log and return a training run's input pipeline readings: parse,
+    .npz write and .npz load seconds a video, pack seconds and H2D ms, GB
+    and GB/s a batch, the loop's ms a step (the lagged read's clock), each
+    epoch's seconds, steps, ms a step and videos/s (a cached epoch's ms a
+    step is the step's own time), peak memory."""
+    pipe = summary["pipeline"]
+    steps = journal(out, "time/epoch_steps")
+    per_video = {k: v[0] / v[1] for k, v in pipe.get(
+        "dataset_seconds", {}).items() if v[1]}
+    h2d = pipe["h2d_ms"]
+    gb = [b / 1e9 for b in pipe["h2d_bytes"]]
+    r = dict(
+        parse_s_per_video=per_video.get("parse"),
+        npz_save_s_per_video=per_video.get("save"),
+        npz_load_s_per_video=per_video.get("load"),
+        pack_s_per_batch=spread(pipe["pack_s"]),
+        h2d_ms_per_batch=spread(h2d), h2d_gb_per_batch=spread(gb),
+        h2d_gb_s=spread([g * 1e3 / ms for g, ms in zip(gb, h2d) if ms]),
+        loop_ms_per_step=spread(list(journal(out,
+                                             "time/step_ms").values())),
+        epochs=[dict(seconds=sec, steps=int(steps[e]),
+                     ms_per_step=sec * 1e3 / steps[e],
+                     videos_per_s=summary["n_videos"] / sec)
+                for e, sec in sorted(journal(out, "time/epoch_s").items())],
+        staging_gib=pipe["staging_bytes"] / 2 ** 30,
+        peak_gib=summary["max_memory_allocated"] / 2 ** 30,
+        end_allocated_gib=summary["memory_allocated"] / 2 ** 30,
+        device_cache=pipe.get("device_cache"))
+    log(f"{what}: {json.dumps(r)}; {card}")
+    return r
+
+
+def drive_disk_train_vidvrd(card, cfg):
+    """Phase 3m: train_vidvrd on the exp2 train split from disk, float32,
+    batch 8, 2 epochs: with the device cache (epoch 0 parses the split,
+    writes the .npz cache and fills the device cache; epoch 1 runs from the
+    device cache) and without it (both epochs read the .npz cache); the
+    per-step losses bit-equal, no kernel launched.  Returns ({"float32":
+    launches}, readings)."""
+    from vidsgg_big_tpu_torch.tools import train_vidvrd
+    base = ["--cfg_path", cfg, "--batch_size", str(BATCH), "--epochs", "2",
+            "--compute_dtype", "float32", "--device", "cuda"]
+    runs = {"cache_on": ["--device_cache_gb", str(EXP2_DISK_CACHE_GB)],
+            "cache_off": ["--device_cache_gb", "0"]}
+    reset_counts()
+    losses, readings = {}, {}
+    for name, extra in runs.items():
+        out = os.path.join(DISK_DIR, f"train_vidvrd_{name}")
+        t0 = time.perf_counter()
+        res = train_vidvrd.main(base + extra + ["--output_dir", out])
+        log(f"train_vidvrd exp2 from disk, {name}: {res['step']} steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+        losses[name] = journal(out, "loss/total")
+        readings[name] = pipeline_readings(
+            f"train_vidvrd exp2 from disk f32 batch {BATCH}, {name}", res,
+            out, card)
+    counts = read_counts()
+    n = len(losses["cache_on"])
+    if sorted(losses["cache_on"]) != list(range(1, n + 1)) or n < 4 or \
+            not all(math.isfinite(v) for v in losses["cache_on"].values()):
+        raise AssertionError(f"train_vidvrd from disk: {losses}")
+    if losses["cache_on"] != losses["cache_off"]:
+        raise AssertionError(f"train_vidvrd from disk: losses with the "
+                             f"device cache {losses['cache_on']} differ from "
+                             f"those without {losses['cache_off']}")
+    cache = readings["cache_on"]["device_cache"]
+    if not cache["complete"] or cache["first_cached_epoch"] != 1 or \
+            cache["videos"] != EXP2_DISK_TRAIN:
+        raise AssertionError(f"train_vidvrd from disk: device cache {cache}")
+    if any(counts.values()):
+        raise AssertionError(f"train_vidvrd from disk: launches {counts}")
+    return {"float32": counts}, readings
+
+
+def check_disk_batch(cfg):
+    """Phase 3n's check: the first exp2 test batch packed into a staging
+    slot and shipped to the card equals, byte for byte, the batch the CPU
+    packs with numpy from the same files, in float32 and bfloat16."""
+    from vidsgg_big_tpu_torch.data.bucketing import (BucketSpec,
+                                                     bucketed_batches)
+    from vidsgg_big_tpu_torch.data.transfer import StagingRing, wire_feats
+    from vidsgg_big_tpu_torch.tools.common import (first_feat_dim,
+                                                   make_dataset)
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    ds, _ = make_dataset(parse_config_py(cfg)["test_dataset_config"],
+                         "vidvrd")
+    records = list(ds)
+    feat = first_feat_dim(p for p, _ in records)
+    for dtype in ("float32", "bfloat16"):
+        spec = BucketSpec(feat_dim=feat, feat_dtype=dtype)
+        ring = StagingRing("cuda")
+        _, rows, staged, _ = next(iter(bucketed_batches(
+            records, spec, BATCH, with_gt=False, staging=ring)))
+        on_card = ring.ship(staged)
+        _, host_rows, host, _ = next(iter(bucketed_batches(
+            records, spec, BATCH, with_gt=False)))
+        torch.cuda.synchronize()
+        ring.close()
+        if [r[0].video_name for r in rows] != \
+                [r[0].video_name for r in host_rows]:
+            raise AssertionError("the staged and numpy batches hold other "
+                                 "videos")
+        for f in dataclasses.fields(host):
+            want = torch.as_tensor(getattr(host, f.name))
+            if f.name == "feats":
+                want = wire_feats(want, getattr(torch, dtype))
+            got = getattr(on_card, f.name).cpu()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"{dtype} {f.name}: the batch on the "
+                                     "card differs from the CPU's packing")
+        log(f"exp2 test batch from disk, {dtype}: shipped through the "
+            f"staging ring, equal to the CPU's numpy packing in all "
+            f"{len(dataclasses.fields(host))} fields "
+            f"({tuple(host.feats.shape)} features)")
+
+
+def drive_disk_eval_vidvrd(card, cfg, in_memory_rate):
+    """Phase 3n: eval_vidvrd on the exp2 test split from disk, batch 8,
+    float32: cold (parse + .npz write) then warm (.npz cache); six
+    role-attention launches a forward; videos/s beside the in-memory
+    rate of phase 3a; then check_disk_batch.  Returns {"float32":
+    launches}."""
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
+    total = dict.fromkeys(read_counts(), 0)
+    rates = {}
+    for run in ("cold", "warm"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_vidvrd.main([
+            "--cfg_path", cfg, "--batch_size", str(BATCH), "--device",
+            "cuda", "--output_dir", OUT_DIR, "--metrics_json",
+            os.path.join(OUT_DIR, f"metrics_disk_{run}.json")])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rates[run] = res["n_videos"] / wall
+        seconds = res["pipeline"]["dataset_seconds"]
+        log(f"eval_vidvrd exp2 test split from disk, {run}: "
+            f"{json.dumps({k: v for k, v in res.items() if k != 'pipeline'})}"
+            f"; {wall:.2f} s = {rates[run]} videos/s; dataset seconds "
+            f"{seconds}; pack s a batch {res['pipeline']['pack_s']}, H2D ms "
+            f"{res['pipeline']['h2d_ms']}; launches {counts} on {card}")
+        if res["n_videos"] != EXP2_DISK_TEST or res["n_relations"] == 0 or \
+                not math.isfinite(res["mAP"]):
+            raise AssertionError(f"eval from disk {run}: {res}")
+        if counts["role_attention"] != n_deco * res["n_batches"]:
+            raise AssertionError(
+                f"eval from disk {run}: {counts['role_attention']} "
+                f"role-attention launches for {res['n_batches']} forwards")
+        if (run == "cold") != ("parse" in seconds):
+            raise AssertionError(f"eval from disk {run}: read {seconds}")
+        total = {k: total[k] + counts[k] for k in total}
+    log(f"exp2 eval_vidvrd videos/s, wall time of the entry point: from "
+        f"disk cold {rates['cold']}, warm {rates['warm']}; in memory "
+        f"(phase 3a, float32) {in_memory_rate}; {card}")
+    check_disk_batch(cfg)
+    return {"float32": total}
+
+
+def drive_disk_train_vidor(card, cfg):
+    """Phase 3o: train_vidor's cls mode (exp4) on the VidOR train split
+    from disk, batch 4: bfloat16 over 2 epochs with the default 4 GB device
+    cache (which completes: epoch 1 runs from it) and without, the losses
+    bit-equal; float32 over 1 epoch with the default cache, which goes over
+    its budget and frees what it captured (the memory allocated at the end
+    within FREED_SLACK of the run without a cache) and without.  Returns
+    ({dtype: launches}, readings)."""
+    from vidsgg_big_tpu_torch.tools import train_vidor
+    base = ["--cfg_path", cfg, "--batch_size", str(CLS_BATCH), "--device",
+            "cuda"]
+    runs = [("bfloat16", "cache_on", 2, []),
+            ("bfloat16", "cache_off", 2, ["--device_cache_gb", "0"]),
+            ("float32", "cache_on", 1, []),
+            ("float32", "cache_off", 1, ["--device_cache_gb", "0"])]
+    reset_counts()
+    losses, readings = {}, {}
+    for dtype, name, epochs, extra in runs:
+        out = os.path.join(DISK_DIR, f"train_vidor_{dtype}_{name}")
+        t0 = time.perf_counter()
+        res = train_vidor.main(base + extra + [
+            "--compute_dtype", dtype, "--epochs", str(epochs),
+            "--output_dir", out])
+        log(f"train_vidor cls from disk, {dtype} {name}: {res['step']} "
+            f"steps in {time.perf_counter() - t0:.1f} s")
+        losses[dtype, name] = journal(out, "loss/total")
+        readings[f"{dtype}_{name}"] = pipeline_readings(
+            f"train_vidor cls exp4 from disk {dtype} batch {CLS_BATCH}, "
+            f"{name}", res, out, card)
+    counts = read_counts()
+    for dtype in ("bfloat16", "float32"):
+        on, off = losses[dtype, "cache_on"], losses[dtype, "cache_off"]
+        if not on or on != off or not all(math.isfinite(v)
+                                           for v in on.values()):
+            raise AssertionError(f"train_vidor from disk {dtype}: losses "
+                                 f"{on} with the cache, {off} without")
+    cache = readings["bfloat16_cache_on"]["device_cache"]
+    if not cache["complete"] or cache["first_cached_epoch"] != 1:
+        raise AssertionError(f"train_vidor from disk bf16: cache {cache}")
+    cache = readings["float32_cache_on"]["device_cache"]
+    end = {k: readings[f"float32_{k}"]["end_allocated_gib"] * 2 ** 30
+           for k in ("cache_on", "cache_off")}
+    log(f"train_vidor from disk f32 at the default 4 GB: cache {cache}; "
+        f"memory allocated at the end {end['cache_on'] / 2 ** 30:.3f} GiB "
+        f"with the cache, {end['cache_off'] / 2 ** 30:.3f} GiB without")
+    if not cache["over_budget"] or cache["videos"] or cache["bytes"] or \
+            end["cache_on"] > end["cache_off"] + FREED_SLACK:
+        raise AssertionError(f"train_vidor from disk f32: the cache over "
+                             f"its budget kept memory: {cache}, {end}")
+    if any(counts.values()):
+        raise AssertionError(f"train_vidor from disk: launches {counts}")
+    return {"bfloat16": counts}, readings
+
+
+def drive_disk_eval_vidor(card, cfg):
+    """Phase 3p: eval_vidor on the VidOR val split from disk, float32:
+    stage A (n_deco_layers role-attention launches a forward), then the
+    grounding stage on the clip features read from video_feature_dir (one
+    composed-forward launch per engaged encoder).  Returns {"float32":
+    launches}."""
+    from vidsgg_big_tpu_torch.models.grounding import (GroundingConfig,
+                                                       composed_encoders)
+    from vidsgg_big_tpu_torch.tools import eval_vidor
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    n_deco = parse_config_py(EXP4_CFG)["model_config"]["n_deco_layers"]
+    gcfg = GroundingConfig.from_dict(parse_config_py(GRD_CFG)[
+        "model_config"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eval_vidor.main([
+        "--cfg_path", cfg, "--grounding_cfg_path", GRD_CFG, "--batch_size",
+        str(VIDOR_BATCH), "--topk", str(VIDOR_TOPK), "--device", "cuda",
+        "--output_dir", OUT_DIR, "--metrics_json",
+        os.path.join(OUT_DIR, "metrics_vidor_disk.json")])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    engaged = sum(len(composed_encoders(gcfg, b, q, t))
+                  for q, t, b in res["stage_b_batches"])
+    log(f"eval_vidor two-stage on the VidOR val split from disk: "
+        f"{json.dumps(res)}; {wall:.1f} s = {res['n_videos'] / wall} "
+        f"videos/s; launches {counts} on {card}")
+    if res["n_videos"] != VIDOR_DISK_VAL or res["n_relations"] == 0 or \
+            not math.isfinite(res["mAP"]):
+        raise AssertionError(f"eval_vidor from disk: {res}")
+    if counts["role_attention"] != n_deco * res["stage_a_batches"]:
+        raise AssertionError(f"eval_vidor from disk: {counts} for "
+                             f"{res['stage_a_batches']} stage-A forwards")
+    if engaged == 0 or counts["composed_attention"] != engaged:
+        raise AssertionError(f"eval_vidor from disk: {counts} where the "
+                             f"gate engages {engaged} encoders")
+    return {"float32": counts}
+
+
+def drive_disk_train_grounding(card, cfg):
+    """Phase 3q: train_vidor --train_grounding on the VidOR train split's
+    clip features from disk, bfloat16, batch 4, one epoch: one composed
+    train forward and one backward launch per step.  Returns {"bfloat16":
+    launches}."""
+    from vidsgg_big_tpu_torch.tools import train_vidor
+    reset_counts()
+    out = os.path.join(DISK_DIR, "train_grounding")
+    res = train_vidor.main([
+        "--train_grounding", "--cfg_path", cfg, "--batch_size",
+        str(CLS_BATCH), "--epochs", "1", "--compute_dtype", "bfloat16",
+        "--device", "cuda", "--output_dir", out])
+    counts = read_counts()
+    losses = journal(out, "loss/total")
+    pipeline_readings(f"train_vidor --train_grounding from disk bf16 batch "
+                      f"{CLS_BATCH}", res, out, card)
+    steps = res["step"]
+    if steps < 1 or sorted(losses) != list(range(1, steps + 1)) or \
+            not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"grounding from disk: {losses}")
+    if counts["composed_attention_train"] != steps or \
+            counts["composed_attention_backward"] != steps:
+        raise AssertionError(f"grounding from disk: launches {counts} over "
+                             f"{steps} steps")
+    return {"bfloat16": counts}
 
 
 def check_int8(card):
@@ -1932,7 +2339,8 @@ def main(argv=None):
             k["code"] = fwd_code[f"{tag}_train"]
         elif k["name"].startswith("composed_attention_"):
             k["code"] = fwd_code[f"{tag}_inference"]
-    by_path = {"exp2_vidvrd": drive_exp2()}
+    by_path = {}
+    by_path["exp2_vidvrd"], exp2 = drive_exp2()
     by_path["vidor_two_stage"], vidor = drive_vidor()
     by_path["grounding_train_step"], train = drive_train_step(card)
     by_path["train_vidor"], _ = drive_train_entry(card)
@@ -1947,6 +2355,24 @@ def main(argv=None):
             drive_vidor_training(card, baseline)
         by_path[f"eval_vidor_{tag}_checkpoint"] = serve_vidor_checkpoints(
             card, cls_ckpts, baseline)
+    # the on-disk route: splits in the reference layout, read by the entry
+    # points without --synthetic
+    t0 = time.perf_counter()
+    disk_cfgs = write_disk_splits()
+    by_path["disk_train_vidvrd"], _ = drive_disk_train_vidvrd(
+        card, disk_cfgs["exp2"])
+    by_path["disk_eval_vidvrd"] = drive_disk_eval_vidvrd(
+        card, disk_cfgs["exp2"],
+        N_VIDEOS / exp2["float32"]["wall_seconds"])
+    by_path["disk_train_vidor_cls"], _ = drive_disk_train_vidor(
+        card, disk_cfgs["exp4"])
+    by_path["disk_eval_vidor"] = drive_disk_eval_vidor(card,
+                                                       disk_cfgs["exp4"])
+    by_path["disk_train_grounding"] = drive_disk_train_grounding(
+        card, disk_cfgs["grounding"])
+    for split in ("vidvrd", "vidor"):     # the written data; logs stay
+        shutil.rmtree(os.path.join(DISK_DIR, split))
+    log(f"the on-disk phases took {time.perf_counter() - t0:.1f} s")
     # role attention runs in float32 under every compute and feature dtype;
     # each composed row counts the launches of its dtype's runs
     rows_of = {"role_attention": ("role_attention", (

@@ -105,10 +105,7 @@ def test_ckpt_every_defaults_to_the_reference_cadence():
 def test_left_out_modes_raise():
     """Every mode runs now; the flags left out raise naming their item."""
     for extra, item in ((["--mesh", "1,1"], "A9"), (["--data_parallel"],
-                                                     "A9"),
-                        (["--synthetic_root", "x"], "A8"),
-                        (["--tables_path", "t.npz"], "A8"),
-                        (["--device_cache_gb", "4"], "A8")):
+                                                     "A9")):
         for mode in (BASE, CLS_BASE, CLS_BASE + ["--train_baseline"]):
             with pytest.raises(NotImplementedError, match=item):
                 train_vidor.main(mode + extra)

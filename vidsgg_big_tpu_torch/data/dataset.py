@@ -1,0 +1,362 @@
+"""Dataset classes: VidVRD (mega / pku / pku+i3d) and VidOR (classeme).
+
+Port of the JAX package's ``data/dataset.py`` (reference
+dataloaders/dataloader_vidvrd.py and dataloader_vidor_v3.py): instead of one
+whole-split pickle (~126 GB for VidOR-train, reference README.md:74), each
+video is cached as its own compressed ``.npz`` so splits stream from disk
+with bounded memory.  The cache format and directory names are the JAX
+package's, so each package reads the other's cache.  Each dataset keeps
+the seconds it spent parsing, writing and loading records
+(``dataset.seconds``: ``{"parse" | "save" | "load": [seconds, videos]}``).
+
+Config keys match the reference constructors one-to-one (configs are passed
+as ``**kwargs``, reference tools/train_vidvrd.py:98-102).
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import time
+from typing import Optional
+
+import numpy as np
+
+from ..utils.categories import (
+    vidvrd_CatName2Id, vidvrd_PredName2Id, vidor_CatName2Id,
+    vidor_PredName2Id)
+from . import parse
+from .types import VideoProposalRecord, VideoGTRecord
+
+# videos excluded for GPU-memory reasons in the original training recipe
+# (reference dataloader_vidvrd.py:209-211); kept for behavior parity
+VIDVRD_OOM_VIDEOS = ("ILSVRC2015_train_00082000", "ILSVRC2015_train_00790000")
+# PKU released tracklets miss one file; the recipe substitutes its own
+# (reference dataloader_vidvrd.py:486-487)
+PKU_MISSING = {"ILSVRC2015_train_00884000":
+               "ILSVRC2015_train_00884000_myFaster18"}
+
+
+def _save_record(path, prop: VideoProposalRecord,
+                 gt: Optional[VideoGTRecord]):
+    arrs = {
+        "p_cat_ids": prop.cat_ids, "p_scores": prop.scores,
+        "p_durations": prop.durations,
+        "p_meta": np.asarray([prop.video_len, *prop.video_wh], np.int64),
+        "p_n": np.asarray(prop.num_proposals),
+    }
+    for i, (b, f) in enumerate(zip(prop.boxes, prop.features)):
+        arrs[f"p_box{i}"] = b
+        arrs[f"p_feat{i}"] = f
+    if gt is not None:
+        arrs.update({
+            "g_traj_cat_ids": gt.traj_cat_ids,
+            "g_traj_durations": gt.traj_durations,
+            "g_pred_cat_ids": gt.pred_cat_ids,
+            "g_pred_durations": gt.pred_durations,
+            "g_adj": gt.adj,
+            "g_n": np.asarray(gt.num_trajs),
+        })
+        for i, b in enumerate(gt.traj_boxes):
+            arrs[f"g_box{i}"] = b
+    # atomic: a job killed mid-write must not leave a truncated .npz that
+    # os.path.exists() accepts and every later run crashes loading
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    np.savez_compressed(tmp, **arrs)
+    os.replace(tmp, path)
+
+
+def _timed(seconds: dict, what: str, t0: float) -> float:
+    """Add the time since ``t0`` to ``seconds[what]``; returns now."""
+    now = time.perf_counter()
+    tot = seconds.setdefault(what, [0.0, 0])
+    tot[0] += now - t0
+    tot[1] += 1
+    return now
+
+
+def _load_record(path, video_name):
+    z = np.load(path)
+    n = int(z["p_n"])
+    meta = z["p_meta"]
+    prop = VideoProposalRecord(
+        video_name=video_name, video_len=int(meta[0]),
+        video_wh=(int(meta[1]), int(meta[2])),
+        cat_ids=z["p_cat_ids"], scores=z["p_scores"],
+        durations=z["p_durations"],
+        boxes=[z[f"p_box{i}"] for i in range(n)],
+        features=[z[f"p_feat{i}"] for i in range(n)])
+    gt = None
+    if "g_n" in z:
+        g = int(z["g_n"])
+        gt = VideoGTRecord(
+            video_name=video_name, video_len=int(meta[0]),
+            video_wh=(int(meta[1]), int(meta[2])),
+            traj_cat_ids=z["g_traj_cat_ids"],
+            traj_durations=z["g_traj_durations"],
+            traj_boxes=[z[f"g_box{i}"] for i in range(g)],
+            pred_cat_ids=z["g_pred_cat_ids"],
+            pred_durations=z["g_pred_durations"], adj=z["g_adj"])
+    return prop, gt
+
+
+class VidVRDDataset:
+    """VidVRD tracklet dataset.
+
+    fmt: "mega" (reference Dataset), "pku" (Dataset_pku), or "pku_i3d"
+    (Dataset_pku_i3d).  Constructor keys mirror the reference configs.
+    """
+
+    def __init__(self, split, ann_dir, proposal_dir, dim_boxfeature,
+                 min_frames_th, max_proposal, max_preds, cache_tag,
+                 fmt="mega", i3d_dir=None, dim_i3d=0,
+                 cache_dir="datasets/cache"):
+        self.split = ("train" if split.lower().startswith("train") else
+                      "test")
+        self.proposal_dir = proposal_dir
+        self.dim_boxfeature = dim_boxfeature
+        self.min_frames_th = min_frames_th
+        self.max_proposal = max_proposal
+        self.max_preds = max_preds
+        self.fmt = fmt
+        self.i3d_dir = i3d_dir
+        self.dim_i3d = dim_i3d
+        self.video_ann_dir = os.path.join(ann_dir, self.split)
+        self.cache_dir = os.path.join(
+            cache_dir,
+            f"{cache_tag}_VidVRD{self.split}_th_{min_frames_th}"
+            f"-{max_proposal}-{max_preds}")
+        os.makedirs(self.cache_dir, exist_ok=True)
+        self.video_name_list = sorted(
+            v.split(".")[0] for v in os.listdir(self.video_ann_dir))
+        self.seconds: dict = {}
+
+    def __len__(self):
+        return len(self.video_name_list)
+
+    def _cache_path(self, video_name):
+        return os.path.join(self.cache_dir, video_name + ".npz")
+
+    def get_data(self, video_name):
+        cache = self._cache_path(video_name)
+        t0 = time.perf_counter()
+        if os.path.exists(cache):
+            rec = _load_record(cache, video_name)
+            _timed(self.seconds, "load", t0)
+            return rec
+        prop_name = video_name
+        if self.fmt in ("pku", "pku_i3d"):
+            prop_name = PKU_MISSING.get(video_name, video_name)
+        track_res = np.load(
+            os.path.join(self.proposal_dir, prop_name + ".npy"),
+            allow_pickle=True)
+        # uniform (R, 12+D) float arrays take the vectorized native-grouped
+        # fast path (identical output, ~13x faster); object arrays (mixed
+        # row lengths) fall back to the row-loop parsers — except mega,
+        # whose fast path bulk-converts mixed-length rows itself
+        uniform = (track_res.ndim == 2 and track_res.dtype != object and
+                   track_res.shape[1] == 12 + self.dim_boxfeature)
+        if self.fmt == "mega":
+            parsed = parse.parse_tracklets_mega_fast(
+                track_res, self.dim_boxfeature, self.min_frames_th)
+        elif self.fmt == "pku":
+            fn = (parse.parse_tracklets_pku_fast if uniform
+                  else parse.parse_tracklets_pku)
+            parsed = fn(track_res, self.dim_boxfeature, self.min_frames_th)
+        elif self.fmt == "pku_i3d":
+            i3d = np.load(os.path.join(self.i3d_dir, prop_name + ".npy"))
+            fn = (parse.parse_tracklets_pku_fast if uniform
+                  else parse.parse_tracklets_pku)
+            parsed = fn(
+                track_res, self.dim_boxfeature, self.min_frames_th,
+                i3d_features=i3d, dim_i3d=self.dim_i3d,
+                zero_i3d=prop_name.endswith("_myFaster18"))
+        else:
+            raise ValueError(self.fmt)
+
+        with open(os.path.join(self.video_ann_dir,
+                               video_name + ".json")) as f:
+            anno = json.load(f)
+        gt = parse.parse_gt_annotation(
+            video_name, anno, vidvrd_CatName2Id, vidvrd_PredName2Id,
+            max_preds=self.max_preds, truncate=self.split == "train")
+        prop = parse.build_proposal_record(
+            video_name, parsed, self.max_proposal,
+            video_len=gt.video_len, video_wh=gt.video_wh)
+        t0 = _timed(self.seconds, "parse", t0)
+        _save_record(cache, prop, gt)
+        _timed(self.seconds, "save", t0)
+        return prop, gt
+
+    def __getitem__(self, idx):
+        video_name = self.video_name_list[idx]
+        if self.split == "train" and video_name in VIDVRD_OOM_VIDEOS:
+            return self[random.randint(0, len(self) - 1)]
+        prop, gt = self.get_data(video_name)
+        if self.split == "train" and prop.num_proposals == 0:
+            return self[random.randint(0, len(self) - 1)]
+        return prop, gt
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class VidORDataset:
+    """VidOR dataset with classeme features and optional I3D clip features.
+
+    Mirrors reference dataloader_vidor_v3.Dataset (constructor keys match).
+    """
+
+    def __init__(self, split, ann_dir, proposal_dir, classeme_dir,
+                 max_proposal, max_preds, score_th, dim_boxfeature,
+                 min_frames_th, cache_tag, video_dir=None,
+                 video_feature_dir=None, cache_dir="datasets/cache"):
+        s = split.lower()
+        self.split = ("train" if s.startswith("train") else
+                      "val" if s.startswith("val") else "test")
+        if isinstance(proposal_dir, str):
+            proposal_dir = {0: proposal_dir}
+        self.proposal_dir = proposal_dir
+        self.classeme_dir = classeme_dir
+        self.max_proposal = max_proposal
+        self.max_preds = max_preds
+        self.score_th = score_th
+        self.dim_boxfeature = dim_boxfeature
+        self.min_frames_th = min_frames_th
+        self.video_feature_dir = video_feature_dir
+        self.use_video_features = video_feature_dir is not None
+        self.video_dir = video_dir
+        sub = {"train": "training", "val": "validation",
+               "test": None}[self.split]
+        self.video_ann_dir = (os.path.join(ann_dir, sub) if sub else None)
+        if self.video_ann_dir is None and video_dir is None:
+            raise ValueError(
+                "the test split has no annotations; video_len/wh come from "
+                "the videos themselves (reference dataloader_vidor.py:"
+                "447-455): pass video_dir")
+        self.cache_dir = os.path.join(
+            cache_dir,
+            f"{cache_tag}_VidOR{self.split}_th_{min_frames_th}"
+            f"-{max_proposal}-{max_preds}-{score_th:.2f}")
+        os.makedirs(self.cache_dir, exist_ok=True)
+        self.video_name_list, self.video_name_list_all = \
+            self._prepare_video_names()
+        self.seconds: dict = {}
+
+    def _prepare_video_names(self):
+        # test split: names come from the video files (no annotations)
+        root = self.video_ann_dir or self.video_dir
+        names_all = []
+        for group in sorted(os.listdir(root)):
+            for v in sorted(os.listdir(os.path.join(root, group))):
+                names_all.append(group + "_" + v.split(".")[0])
+        if self.split != "train":
+            return names_all, names_all
+        names = []
+        for k in self.proposal_dir:
+            names += names_all[k * 500:(k + 1) * 500]
+        return names, names_all
+
+    def _track_res_path(self, video_name):
+        if self.split == "train":
+            index = self.video_name_list_all.index(video_name)
+            return os.path.join(self.proposal_dir[index // 500],
+                                video_name + ".npy")
+        (d,) = self.proposal_dir.values()
+        return os.path.join(d, video_name + ".npy")
+
+    def __len__(self):
+        return len(self.video_name_list)
+
+    def get_data(self, video_name):
+        cache = os.path.join(self.cache_dir, video_name + ".npz")
+        t0 = time.perf_counter()
+        if os.path.exists(cache):
+            rec = _load_record(cache, video_name)
+            _timed(self.seconds, "load", t0)
+            return rec
+        track_res = np.load(self._track_res_path(video_name),
+                            allow_pickle=True)
+        classeme = np.load(os.path.join(self.classeme_dir,
+                                        video_name + "_clsme.npy"))
+        parsed = parse.parse_tracklets_vidor_fast(
+            track_res, classeme, self.dim_boxfeature, self.min_frames_th)
+        group, vid = video_name.split("_")
+        if self.video_ann_dir is not None:
+            with open(os.path.join(self.video_ann_dir, group,
+                                   vid + ".json")) as f:
+                anno = json.load(f)
+            gt = parse.parse_gt_annotation(
+                video_name, anno, vidor_CatName2Id, vidor_PredName2Id,
+                max_preds=self.max_preds, truncate=self.split == "train")
+            video_len, video_wh = gt.video_len, gt.video_wh
+        else:
+            from .video_io import get_video_info, find_video_file
+            gt = None
+            video_len, video_wh = get_video_info(
+                find_video_file(self.video_dir, group, vid))
+        prop = parse.build_proposal_record(
+            video_name, parsed, self.max_proposal, score_th=self.score_th,
+            video_len=video_len, video_wh=video_wh)
+        t0 = _timed(self.seconds, "parse", t0)
+        _save_record(cache, prop, gt)
+        _timed(self.seconds, "save", t0)
+        return prop, gt
+
+    def load_video_feature(self, video_name):
+        return np.load(os.path.join(self.video_feature_dir,
+                                    video_name + ".npy"))
+
+    def video_feature_len(self, video_name):
+        """Clip count of a video's I3D feature file, from the .npy header
+        only (no data read) — lets stage-B bucketing plan (Q, T) batches
+        without holding any feature array."""
+        m = np.load(os.path.join(self.video_feature_dir,
+                                 video_name + ".npy"), mmap_mode="r")
+        return int(m.shape[0])
+
+    def __getitem__(self, idx):
+        video_name = self.video_name_list[idx]
+        prop, gt = self.get_data(video_name)
+        if self.split == "train" and (
+                prop.num_proposals == 0 or gt.num_trajs == 0
+                or gt.num_preds == 0 or gt.video_len > 2700):
+            return self[random.randint(0, len(self) - 1)]
+        if self.use_video_features:
+            return self.load_video_feature(video_name), prop, gt
+        return prop, gt
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def merge_gt_into_proposals(prop: VideoProposalRecord, gt, gt_features,
+                            max_proposal: int, score_th=None, gt_score=1.0):
+    """Mix GT trajectories into the proposal set (the training-era VidOR
+    loader's ``merge_trajs``, reference dataloaders/dataloader_vidor.py:695-719).
+
+    gt_features: list of per-frame feature arrays aligned with gt.traj_boxes
+    (e.g. detector features extracted on the GT boxes).
+    """
+    from .parse import build_proposal_record
+
+    cat_ids = list(prop.cat_ids) + list(gt.traj_cat_ids)
+    boxes, feats, durations = [], [], []
+    for b, f, d, s in zip(prop.boxes, prop.features, prop.durations,
+                          prop.scores):
+        boxes.append(np.concatenate(
+            [b, np.full((b.shape[0], 1), s, np.float32)], axis=1))
+        feats.append(f)
+        durations.append((int(d[0]), int(d[1]) + 1))
+    for i in range(gt.num_trajs):
+        b = np.asarray(gt.traj_boxes[i], np.float32)
+        boxes.append(np.concatenate(
+            [b, np.full((b.shape[0], 1), gt_score, np.float32)], axis=1))
+        feats.append(np.asarray(gt_features[i], np.float32))
+        d = gt.traj_durations[i]
+        durations.append((int(d[0]), int(d[1]) + 1))
+    return build_proposal_record(
+        prop.video_name, (cat_ids, boxes, feats, durations), max_proposal,
+        score_th=score_th, video_len=prop.video_len, video_wh=prop.video_wh)

@@ -153,12 +153,16 @@ def quantize_feats(trajs):
 
 
 def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
-                  feat_dim: int, dtype=np.float32) -> TrackletBatch:
+                  feat_dim: int, dtype=np.float32,
+                  feats_out: torch.Tensor | None = None) -> TrackletBatch:
     """Pad one video's proposals into a fixed (N, T) bucket (numpy leaves).
 
     ``dtype`` float32 or int8 (:func:`quantize_feats`, on the host, since
     the scale is per video); low-precision float storage is a cast after
-    the copy (``TrackletBatch.to``)."""
+    the copy (``TrackletBatch.to``), or, with ``feats_out``, the cast into
+    it.  ``feats_out`` ((N, T, D) tensor, e.g. a row of a staging slot):
+    the features are packed straight into it (cast to its dtype, padding
+    zeroed) and it is the batch's ``feats``."""
     n = rec.num_proposals
     if n > n_bucket:
         raise ValueError(f"{rec.video_name}: {n} proposals > bucket "
@@ -181,18 +185,29 @@ def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
     feat_scale = np.float32(1.0)
     if np.dtype(dtype) == np.int8:
         trajs, feat_scale = quantize_feats(trajs)
-    if n == 0:
+    if n and trajs[0].shape[-1] != feat_dim:
+        raise ValueError(f"{rec.video_name}: feature width "
+                         f"{trajs[0].shape[-1]} != {feat_dim}")
+    if feats_out is not None:
+        if tuple(feats_out.shape) != (n_bucket, t_bucket, feat_dim):
+            raise ValueError(f"feats_out {tuple(feats_out.shape)} is not "
+                             f"{(n_bucket, t_bucket, feat_dim)}")
+        for i, x in enumerate(trajs):
+            feats_out[i, :x.shape[0]].copy_(torch.from_numpy(x))
+            feats_out[i, x.shape[0]:].zero_()
+        feats_out[n:].zero_()
+        feats = feats_out
+    elif n == 0:
         # zero-proposal videos occur in real splits: size the empty arrays
         # from feat_dim, not from the (empty) record
         feats = np.zeros((n_bucket, t_bucket, feat_dim), dtype)
-        boxes = np.zeros((n_bucket, t_bucket, 4), np.float32)
     else:
         feats = pad_pack(trajs, n_bucket, t_bucket, dtype)
+    if n == 0:
+        boxes = np.zeros((n_bucket, t_bucket, 4), np.float32)
+    else:
         boxes = pad_pack([np.asarray(b[:t_bucket, :4], np.float32)
                           for b in rec.boxes], n_bucket, t_bucket)
-    if feats.shape[-1] != feat_dim:
-        raise ValueError(f"{rec.video_name}: feature width "
-                         f"{feats.shape[-1]} != {feat_dim}")
     cat_ids[:n] = rec.cat_ids
     scores[:n] = rec.scores
     mask[:n] = True
@@ -203,6 +218,35 @@ def pack_proposal(rec: VideoProposalRecord, n_bucket: int, t_bucket: int,
         video_len=np.asarray(rec.video_len, np.int32),
         video_wh=np.asarray(rec.video_wh, np.float32),
         feat_scale=np.asarray(feat_scale, np.float32))
+
+
+def tracklet_leaves(b: int, n: int, t: int, feat_dim: int,
+                    feat_dtype: torch.dtype) -> dict:
+    """{field: (shape, torch dtype)} of a stacked TrackletBatch of ``b``
+    videos at (n, t) with ``feat_dtype`` features."""
+    return {"feats": ((b, n, t, feat_dim), feat_dtype),
+            "boxes": ((b, n, t, 4), torch.float32),
+            "stretch_idx": ((b, n, t), torch.int32),
+            "durations": ((b, n, 2), torch.int32),
+            "cat_ids": ((b, n), torch.int32),
+            "scores": ((b, n), torch.float32),
+            "traj_mask": ((b, n), torch.bool),
+            "video_len": ((b,), torch.int32),
+            "video_wh": ((b, 2), torch.float32),
+            "feat_scale": ((b,), torch.float32)}
+
+
+def graph_leaves(b: int, g: int, tg: int, p: int) -> dict:
+    """{field: (shape, torch dtype)} of a stacked GraphBatch of ``b``
+    videos at (G=g, Tg=tg, P=p)."""
+    return {"traj_cats": ((b, g), torch.int32),
+            "traj_durations": ((b, g, 2), torch.int32),
+            "traj_boxes": ((b, g, tg, 4), torch.float32),
+            "traj_mask": ((b, g), torch.bool),
+            "pred_cats": ((b, p), torch.int32),
+            "pred_durations": ((b, p, 2), torch.float32),
+            "pred_mask": ((b, p), torch.bool),
+            "adj": ((b, 2, p, g), torch.float32)}
 
 
 def pack_gt(rec: VideoGTRecord, g_bucket: int, tg_bucket: int,

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` at first use and load them.
+"""Build the port's CUDA kernels with ``nvcc``, and its host library with
+``g++``, at first use and load them.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 into a shared library loaded with ``ctypes`` (no PyTorch headers, so a build
@@ -6,7 +7,9 @@ takes seconds).  Libraries go to ``build/vidsgg_big_tpu_torch/`` at the root
 of the checkout, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs at
-import time: the CPU-only test host has no ``nvcc``.
+import time: the CPU-only test host has no ``nvcc``.  The host packer
+(``csrc/packer.cpp``, :data:`HOST_LIBRARIES`) is plain C++ built with
+``g++`` the same way, on any host; a failed build raises.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu",
            "composed_attn": CSRC_DIR / "composed_attn.cu",
            "composed_attn_bwd": CSRC_DIR / "composed_attn_bwd.cu"}
 
+# host libraries (plain C++, no CUDA), by library name
+HOST_LIBRARIES = {"packer": CSRC_DIR / "packer.cpp"}
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
 _loaded: dict = {}
 
 
@@ -44,6 +51,10 @@ def cuda_tool(name: str = "nvcc") -> str:
 
 
 def library_path(name: str) -> Path:
+    if name in HOST_LIBRARIES:
+        digest = hashlib.sha256(HOST_LIBRARIES[name].read_bytes() +
+                                " ".join(GXX_FLAGS).encode())
+        return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     src = KERNELS[name]
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers +
@@ -108,6 +119,39 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def build_host(name: str, compiler: str = "g++") -> Path:
+    """Compile the host library ``name`` (:data:`HOST_LIBRARIES`) with
+    ``compiler`` and :data:`GXX_FLAGS` unless it is built; returns its
+    path.  A failed build raises with the compiler's output."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [compiler, *GXX_FLAGS, "-o", tmp, str(HOST_LIBRARIES[name])]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"cannot run {compiler} to build {name}: {e}")
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{compiler} failed for "
+                           f"{HOST_LIBRARIES[name]}:\n{proc.stdout}")
+    os.replace(tmp, out)     # atomic: concurrent builds agree
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name``, built with g++ first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = _loaded[name] = ctypes.CDLL(str(build_host(name)))
     return lib
 
 

@@ -1,8 +1,10 @@
 """Temporal-interval (duration) algebra on tensors.
 
 Durations are **closed intervals** ``[start, end]`` of frame ids, as in the
-JAX package's ``ops/temporal.py``.  Every function takes a leading batch of
-any rank before the interval axis.
+JAX package's ``ops/temporal.py``.  Every tensor function takes a leading
+batch of any rank before the interval axis.  The host helpers
+(:func:`merge_duration_list`, :func:`is_overlap`) work on python tuples in
+the annotations' half-open ``[start, end)`` convention, for the parsers.
 """
 from __future__ import annotations
 
@@ -57,3 +59,27 @@ def tiou_left_right(lr1, lr2):
             + torch.minimum(lr1[..., 0], lr2[..., 0])) / (
         torch.maximum(lr1[..., 1], lr2[..., 1])
         + torch.maximum(lr1[..., 0], lr2[..., 0]))
+
+
+def merge_duration_list(duration_list):
+    """Merge overlapping/touching half-open [s, e) durations into runs, as
+    the JAX package's (reference utils/utils_func.py:591-621): a duration
+    that starts inside the last run replaces that run's end with its own."""
+    duration_list = sorted(list(duration_list), key=lambda d: d[0])
+    merged = [duration_list[0]]
+    for cur_start, cur_end in duration_list[1:]:
+        former_start, former_end = merged[-1]
+        if cur_start <= former_end:
+            merged[-1] = (former_start, cur_end)
+        else:
+            merged.append((cur_start, cur_end))
+    return merged
+
+
+def is_overlap(dura1, dura2) -> bool:
+    """Half-open intervals; touching boundaries do not count as overlap."""
+    s1, e1 = dura1
+    s2, e2 = dura2
+    if not (s1 < e1 and s2 < e2):
+        raise ValueError(f"empty duration: {dura1}, {dura2}")
+    return not (e1 <= s2 or e2 <= s1)

@@ -4,22 +4,31 @@ grounding model's multi-bin temporal localisation of every predicted
 triplet (stage B), then the VidOR relation-detection metrics.
 
 Counterpart of the JAX package's ``tools/eval_vidor.py`` (the paper's
-classification-then-grounding evaluation; its GT comes from the records'
-own graphs).  Run as
+classification-then-grounding evaluation).  Run as
 
     python -m vidsgg_big_tpu_torch.tools.eval_vidor \\
         --cfg_path experiments/exp4/config_.py \\
         --grounding_cfg_path experiments/grounding_weights/config_.py \\
-        --synthetic 8 --synthetic_model_dims --batch_size 4 [--device cpu]
+        --batch_size 4 [--device cpu]
 
-or, for the paper's table-2 baseline, ``--use_baseline --cfg_path
-experiments/exp6/config_rt200.py``.  ``--ckpt_path`` takes a reference-named
-``state_dict`` file or a ``tools/train_vidor`` checkpoint directory (its
-newest ``ckpt_*.pt``); ``--feat_dtype int8`` stores the stage-A features as
-int8 with a scale per video.  This slice reads no dataset from disk:
-``--synthetic N`` draws N in-memory VidOR-shaped records and their I3D
-clip features (``data/synthetic_vidor``).  Reading the on-disk VidOR
-splits is ROADMAP item A8.
+to read the config's ``test_dataset_config`` split in the reference layout
+(tracklets, classemes, annotation JSONs, a per-video ``.npz`` cache under
+``cache_dir``; stage B reads each video's I3D clip features from
+``video_feature_dir``), with the GT of its annotations or of
+``--gt_json``; the annotation-free test split needs OpenCV for its videos'
+lengths and sizes, and is scored only with ``--gt_json``.  ``--synthetic N
+--synthetic_root DIR`` first writes N videos in that layout under DIR
+(``data/synthetic_raw``) and reads them; ``--synthetic N`` alone draws N
+in-memory VidOR-shaped records and seeded clip features instead
+(``data/synthetic_vidor``).  For the paper's table-2 baseline:
+``--use_baseline --cfg_path experiments/exp6/config_rt200.py``.
+``--ckpt_path`` takes a reference-named ``state_dict`` file or a
+``tools/train_vidor`` checkpoint directory (its newest ``ckpt_*.pt``);
+``--tables_path`` a ``tables.npz`` of the frozen name embedding and v7
+position table; ``--feat_dtype int8`` stores the stage-A features as int8
+with a scale per video.  Batches are packed into reused pinned slots and
+copied to the card on a copy stream (``data/transfer.StagingRing``), stage
+A's on a prefetch thread.
 """
 from __future__ import annotations
 
@@ -33,10 +42,12 @@ import numpy as np
 import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches, pick_unbounded
+from ..data.prefetch import prefetch
 from ..data.synthetic import clip_features, num_clips
 from ..data.synthetic_vidor import (  # noqa: F401 (the CLIs' recipe)
     DIM_CLASSEME, FULL_SIZE_RECIPE, SMALL_DIM_FEAT, record_feat_dim,
     synthetic_records)
+from ..data.transfer import StagingRing
 from ..evaluation.convert import EvalFmtCvtor
 from ..evaluation.metrics import eval_relation_with_gt
 from ..models.base_c import BaseC, BaseCConfig
@@ -49,7 +60,9 @@ from ..train.steps import build_basec_infer_step, build_infer_step
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
 from ..utils.logger import create_logger
-from .eval_vidvrd import WEIGHT_SEED, load_table, build_model, load_state
+from .common import (first_feat_dim, load_side_tables, load_table,
+                     make_dataset, pipeline_summary)
+from .eval_vidvrd import WEIGHT_SEED, build_model, load_state
 
 # stage A packs tracklets on this ladder (the JAX CLI's :71-72)
 STAGE_A_N_LADDER = (8, 16, 32, 64, 128, 192)
@@ -57,7 +70,6 @@ STAGE_B_MIN_BATCH = 4
 # flags of the JAX CLI that this slice leaves out, with their ROADMAP item
 LEFT_OUT = {"mesh": "A9 (multi-GPU)",
             "zeroshot": "A10 (zero-shot eval)",
-            "gt_json": "A8 (on-disk data)",
             "save_hit_infos": "A10 (hit infos)"}
 
 
@@ -77,15 +89,17 @@ def build_grounding_model(cfg: GroundingConfig, ckpt_path=None):
 
 
 def build_basec_model(cfg: BaseCConfig, model_config: dict, ckpt_path=None,
-                      seed: int = WEIGHT_SEED) -> BaseC:
+                      seed: int = WEIGHT_SEED, tables_path=None) -> BaseC:
     """BaseC on the CPU: random weights from ``seed`` and the config's name
     and bias tables (zeros where their files are absent, as the JAX CLI's
-    ``load_tables``), or the weights of a checkpoint file or directory
-    (``eval_vidvrd.load_state``)."""
+    ``load_tables``), the name table of ``tables_path`` where given, or the
+    weights of a checkpoint file or directory (``eval_vidvrd.load_state``).
+    """
     e, c = cfg.num_enti_cats, cfg.num_pred_cats
-    model = BaseC(cfg, enti_name_emb=load_table(model_config.get(
-        "EntiNameEmb_path"), (e, cfg.dim_clsme)),
-        generator=torch.Generator().manual_seed(seed))
+    enti_emb, _ = load_side_tables(tables_path, load_table(
+        model_config.get("EntiNameEmb_path"), (e, cfg.dim_clsme)))
+    model = BaseC(cfg, enti_name_emb=enti_emb,
+                  generator=torch.Generator().manual_seed(seed))
     load_bias_matrix(model, load_table(model_config.get("bias_matrix_path"),
                                    (e, e, c)))
     if ckpt_path:
@@ -98,49 +112,55 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def classify(args, logger, all_cfgs, records, device):
-    """Stage A: BIG-C v7 (or Base-C) inference -> ({video: Triplets
-    (numpy)}, light rows (proposal without features, GT), stats)."""
+def classify(args, logger, all_cfgs, records, feat_dim, device):
+    """Stage A: BIG-C v7 (or Base-C) inference over ``records`` ((proposal,
+    GT) pairs of ``feat_dim`` features) -> ({video: Triplets (numpy)},
+    light rows (proposal without features, GT), stats)."""
     mc = all_cfgs["model_config"]
     if args.compute_dtype:
         mc = dict(mc, compute_dtype=args.compute_dtype)
     topk = args.topk or all_cfgs.get("inference_config", {}).get("topk", 10)
     if args.use_baseline:
         cfg = BaseCConfig.from_dict(mc)
-        model = build_basec_model(cfg, mc, args.ckpt_path)
+        model = build_basec_model(cfg, mc, args.ckpt_path,
+                                  tables_path=args.tables_path)
         infer = build_basec_infer_step(model.to(device), topk=topk)
     else:
         cfg = BigCConfig.from_dict(mc, variant="v7")
-        model = build_model(cfg, mc, args.ckpt_path)
+        model = build_model(cfg, mc, args.ckpt_path,
+                            tables_path=args.tables_path)
         infer = build_infer_step(model.to(device), topk=topk)
     if args.ckpt_path:
         logger.info(f"loaded stage-A checkpoint {args.ckpt_path}")
-    spec = BucketSpec(feat_dim=record_feat_dim(cfg.dim_feat,
-                                               args.synthetic_model_dims),
-                      n_ladder=STAGE_A_N_LADDER, feat_dtype=args.feat_dtype)
-    feat_dtype = getattr(torch, args.feat_dtype)
+    spec = BucketSpec(feat_dim=feat_dim, n_ladder=STAGE_A_N_LADDER,
+                      feat_dtype=args.feat_dtype)
     results, rows = {}, []
     n_batches, seconds = 0, 0.0
-    for _, brows, props, _ in bucketed_batches(records, spec,
-                                               args.batch_size,
-                                               with_gt=False):
-        props = props.to(device, feats=feat_dtype)
-        _sync(device)
-        t0 = time.perf_counter()
-        trip = infer(props).numpy()       # the host copy ends the device work
-        seconds += time.perf_counter() - t0
-        n_batches += 1
-        for i, (prop, gt) in enumerate(brows):
-            results[prop.video_name] = trip.video(i)
-            # light rows for stage B and the GT: features dropped
-            rows.append((dataclasses.replace(prop, features=[]), gt))
+    ring = StagingRing(device)
+    try:
+        for _, brows, props, _ in prefetch(bucketed_batches(
+                records, spec, args.batch_size, with_gt=False,
+                staging=ring)):
+            props = ring.ship(props)
+            _sync(device)
+            t0 = time.perf_counter()
+            trip = infer(props).numpy()   # the host copy ends the device work
+            seconds += time.perf_counter() - t0
+            n_batches += 1
+            for i, (prop, gt) in enumerate(brows):
+                results[prop.video_name] = trip.video(i)
+                # light rows for stage B and the GT: features dropped
+                rows.append((dataclasses.replace(prop, features=[]), gt))
+    finally:
+        ring.close()
     logger.info(f"stage A done on {len(results)} videos in {n_batches} "
                 f"batches, {seconds:.3f} s in forward + triplets")
     # unique valid triplets per video: stage B's query count
     triplets = [int(results[p.video_name].valid.sum()) for p, _ in rows]
     return results, rows, dict(stage_a_batches=n_batches,
                                stage_a_seconds=seconds,
-                               stage_a_triplets=triplets)
+                               stage_a_triplets=triplets,
+                               stage_a_pipeline=pipeline_summary(ring))
 
 
 def _expand_bins(prop, quint, scores3, duras, pooled, bins_probs, bins_mask):
@@ -163,11 +183,45 @@ def _expand_bins(prop, quint, scores3, duras, pooled, bins_probs, bins_mask):
     return qq, scores[sel], np.stack([fs, fe], axis=-1)[sel]
 
 
-def ground(args, logger, results, rows, device):
+class SyntheticClips:
+    """Stage B's clip features of the in-memory synthetic videos: seeded
+    from the video's name and length."""
+
+    @staticmethod
+    def length(prop) -> int:
+        return num_clips(prop.video_len)
+
+    @staticmethod
+    def load(prop, dim: int) -> np.ndarray:
+        return clip_features(_synthetic_seed(prop.video_name),
+                             prop.video_len, dim)
+
+
+class DatasetClips:
+    """Stage B's clip features of a split on disk (``video_feature_dir``):
+    the clip count from the ``.npy`` header, the features when packed."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def length(self, prop) -> int:
+        return self.dataset.video_feature_len(prop.video_name)
+
+    def load(self, prop, dim: int) -> np.ndarray:
+        vf = self.dataset.load_video_feature(prop.video_name)
+        if vf.shape[1] != dim:
+            raise ValueError(f"{prop.video_name}: clip features of width "
+                             f"{vf.shape[1]}, the grounding model takes "
+                             f"{dim}")
+        return vf
+
+
+def ground(args, logger, results, rows, device, clips):
     """Stage B: every valid triplet becomes a grounding query; videos are
-    grouped on the (Q, T) grounding ladder and run in batches of
-    ``max(batch_size, 4)`` padded to one shape.  Returns (predicted
-    relations, stats)."""
+    grouped on the (Q, T) grounding ladder (T from ``clips.length``) and
+    run in batches of ``max(batch_size, 4)`` padded to one shape, their
+    clip features from ``clips.load``.  Returns (predicted relations,
+    stats)."""
     grd_cfgs = parse_config_py(args.grounding_cfg_path)
     gmc = grd_cfgs["model_config"]
     if args.compute_dtype:
@@ -192,35 +246,45 @@ def ground(args, logger, results, rows, device):
         v = trip.valid
         work = (prop, trip.quintuples[v], trip.scores[v], trip.dura_inters[v])
         key = (pick_unbounded(int(v.sum())),
-               pick_unbounded(num_clips(prop.video_len)))
+               pick_unbounded(clips.length(prop)))
         groups.setdefault(key, []).append(work)
 
     b = max(args.batch_size, STAGE_B_MIN_BATCH)
     batches, seconds = [], 0.0
+    ring = StagingRing(device)
     for q_bucket, t_bucket in sorted(groups):
         group = groups[(q_bucket, t_bucket)]
         logger.info(f"stage B: {len(group)} videos in (Q={q_bucket}, "
                     f"T={t_bucket}) bucket (batch {b})")
         for s in range(0, len(group), b):
             chunk = group[s:s + b]
-            feats = np.zeros((b, t_bucket, gcfg.dim_feat), np.float32)
-            clips = np.zeros((b,), np.int64)
-            qc = np.zeros((b, q_bucket, 3), np.int64)
-            temp = np.zeros((b, q_bucket, 2), np.float32)
-            qm = np.zeros((b, q_bucket), bool)
+            t0 = time.perf_counter()
+            host = ring.acquire({
+                "feats": ((b, t_bucket, gcfg.dim_feat), torch.float32),
+                "clip_mask": ((b, t_bucket), torch.bool),
+                "clips": ((b,), torch.int64),
+                "qc": ((b, q_bucket, 3), torch.int64),
+                "temp": ((b, q_bucket, 2), torch.float32),
+                "qm": ((b, q_bucket), torch.bool)})
+            for x in host.values():
+                x.zero_()
             for i, (prop, quint, _, duras) in enumerate(chunk):
-                vf = clip_features(_synthetic_seed(prop.video_name),
-                                   prop.video_len, gcfg.dim_feat)
+                vf = clips.load(prop, gcfg.dim_feat)
                 nc = min(vf.shape[0], t_bucket)
-                feats[i, :nc] = vf[:nc]
-                clips[i] = nc
+                host["feats"][i, :nc] = torch.from_numpy(
+                    np.asarray(vf[:nc], np.float32))
+                host["clips"][i] = nc
                 m = quint.shape[0]
                 q_cats, q_temp, _ = prepare_grounding_queries(
                     quint, duras, None, prop.video_len)
-                qc[i, :m], temp[i, :m], qm[i, :m] = q_cats, q_temp, True
-            clip_mask = np.arange(t_bucket)[None] < clips[:, None]
-            operands = [torch.from_numpy(a).to(device) for a in (
-                feats, clip_mask, clips, qc, temp, qm)]
+                host["qc"][i, :m] = torch.as_tensor(q_cats)
+                host["temp"][i, :m] = torch.as_tensor(q_temp)
+                host["qm"][i, :m] = True
+            torch.lt(torch.arange(t_bucket)[None], host["clips"][:, None],
+                     out=host["clip_mask"])
+            ring.pack_seconds.append(time.perf_counter() - t0)
+            operands = ring.ship(tuple(host[k] for k in (
+                "feats", "clip_mask", "clips", "qc", "temp", "qm")))
             _sync(device)
             t0 = time.perf_counter()
             pooled, bins_probs, bins_mask = (
@@ -237,10 +301,34 @@ def ground(args, logger, results, rows, device):
                         cvt._reset_video_name(prop.video_name)] = []
                     continue
                 predict_relations.update(cvt.to_eval_format_pr(prop, out))
+    ring.close()
     logger.info(f"stage B done in {len(batches)} batches, {seconds:.3f} s "
                 "in forward + decode")
     return predict_relations, dict(stage_b_batches=batches,
-                                   stage_b_seconds=seconds)
+                                   stage_b_seconds=seconds,
+                                   stage_b_pipeline=pipeline_summary(ring))
+
+
+def split_records(args, all_cfgs, logger):
+    """(records, feature width, clip source, dataset or None): the
+    in-memory synthetic records with ``--synthetic`` alone, else the
+    config's test split in the reference layout (first written under
+    ``--synthetic_root`` with ``--synthetic``), streamed from its per-video
+    cache without the clip features."""
+    dim_feat = all_cfgs["model_config"]["dim_feat"]
+    if args.synthetic and not args.synthetic_root:
+        return (synthetic_records(args.synthetic, dim_feat,
+                                  args.synthetic_model_dims),
+                record_feat_dim(dim_feat, args.synthetic_model_dims),
+                SyntheticClips(), None)
+    dataset, _ = make_dataset(all_cfgs["test_dataset_config"], "vidor",
+                              synthetic=args.synthetic,
+                              synthetic_root=args.synthetic_root)
+    logger.info(f"dataset: {len(dataset)} videos")
+    names = dataset.video_name_list
+    feat_dim = first_feat_dim(dataset.get_data(n)[0] for n in names)
+    return ((dataset.get_data(n) for n in names), feat_dim,
+            DatasetClips(dataset), dataset)
 
 
 def inference_then_eval(args) -> dict:
@@ -248,9 +336,6 @@ def inference_then_eval(args) -> dict:
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP {item})")
-    if not args.synthetic:
-        raise SystemExit("this port reads no VidOR split from disk yet "
-                         "(ROADMAP A8); pass --synthetic N")
     device = resolve_device(args.device)
     strict_float32()
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
@@ -258,27 +343,49 @@ def inference_then_eval(args) -> dict:
     os.makedirs(log_dir, exist_ok=True)
     logger = create_logger(os.path.join(log_dir, "eval_vidor_torch.log"))
     all_cfgs = parse_config_py(args.cfg_path)
-    records = synthetic_records(args.synthetic,
-                                all_cfgs["model_config"]["dim_feat"],
-                                args.synthetic_model_dims)
-    results, rows, stats = classify(args, logger, all_cfgs, records, device)
+    t0 = time.perf_counter()
+    records, feat_dim, clips, dataset = split_records(args, all_cfgs, logger)
+    results, rows, stats = classify(args, logger, all_cfgs, records,
+                                    feat_dim, device)
+    if dataset is not None:
+        stats["dataset_seconds"] = dict(dataset.seconds)
     cvt = EvalFmtCvtor("vidor")
     if args.grounding_cfg_path:
+        if dataset is not None and not dataset.use_video_features:
+            raise ValueError("--grounding_cfg_path needs the I3D clip "
+                             "features of video_feature_dir in the dataset "
+                             "config")
         predict_relations, b_stats = ground(args, logger, results, rows,
-                                            device)
+                                            device, clips)
         stats.update(b_stats)
     else:
         predict_relations = {}
         for prop, _ in rows:
             predict_relations.update(
                 cvt.to_eval_format_pr(prop, results[prop.video_name]))
-    gt_relations = {}
-    for _, gt in rows:
-        gt_relations.update(cvt.to_eval_format_gt(gt))
+    stats["wall_seconds"] = time.perf_counter() - t0
+    stats.update(n_videos=len(rows), n_relations=sum(
+        len(v) for v in predict_relations.values()), device=str(device))
+    if args.save_json_results:
+        split = all_cfgs.get("test_dataset_config", {}).get("split", "val")
+        p = os.path.join(experiment_dir,
+                         f"VidOR{split}_predict_relations_torch.json")
+        with open(p, "w") as f:
+            json.dump(predict_relations, f)
+        logger.info(f"predict_relations saved at {p}")
+    if all(gt is None for _, gt in rows) and not args.gt_json:
+        logger.info("the split has no ground truth; no metrics")
+        return stats
+    gt_relations = None
+    if not args.gt_json:
+        gt_relations = {}
+        for _, gt in rows:
+            gt_relations.update(cvt.to_eval_format_gt(gt))
 
     mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
         dataset_type="vidor", logger=logger,
-        prediction_results=predict_relations, gt_relations=gt_relations)
+        prediction_results=predict_relations, gt_relations=gt_relations,
+        gt_relations_path=args.gt_json)
     metrics = {"mAP": float(mean_ap),
                "recall": {str(k): float(v) for k, v in rec_at_n.items()},
                "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
@@ -288,16 +395,7 @@ def inference_then_eval(args) -> dict:
         with open(args.metrics_json, "w") as f:
             json.dump(metrics, f, indent=1)
         logger.info(f"metrics json saved at {args.metrics_json}")
-    if args.save_json_results:
-        split = all_cfgs.get("test_dataset_config", {}).get("split", "val")
-        p = os.path.join(experiment_dir,
-                         f"VidOR{split}_predict_relations_torch.json")
-        with open(p, "w") as f:
-            json.dump(predict_relations, f)
-        logger.info(f"predict_relations saved at {p}")
-    return dict(metrics, **stats, n_videos=len(rows),
-                n_relations=sum(len(v) for v in predict_relations.values()),
-                device=str(device))
+    return dict(metrics, **stats)
 
 
 def parse_args(argv=None):
@@ -345,16 +443,27 @@ def parse_args(argv=None):
                         choices=("float32", "bfloat16"),
                         help="override the compute dtype of both stages "
                              "(config key compute_dtype)")
+    parser.add_argument("--gt_json", type=str, default=None,
+                        help="challenge-format GT file (default: the GT of "
+                             "the split's annotations)")
+    parser.add_argument("--tables_path", type=str, default=None,
+                        help="tables.npz of the frozen name embedding "
+                             "(enti_name_emb) and v7 position table")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="evaluate on N in-memory VidOR-shaped videos "
-                             "with seeded I3D clip features (reading the "
-                             "on-disk VidOR splits is ROADMAP A8)")
+                        help="evaluate on N synthetic VidOR-shaped videos: "
+                             "written in the reference layout under "
+                             "--synthetic_root and read from there, or, "
+                             "without it, drawn in memory with seeded I3D "
+                             "clip features")
+    parser.add_argument("--synthetic_root", type=str, default=None,
+                        help="directory of the --synthetic split on disk")
     parser.add_argument("--synthetic_model_dims", action="store_true",
-                        help="full-size synthetic videos: RoI features at "
-                             "the config's dim_feat (+300 classeme) and "
-                             "2,400-frame videos with 46 tracklets")
+                        help="in-memory synthetic videos at full size: RoI "
+                             "features at the config's dim_feat (+300 "
+                             "classeme) and 2,400-frame videos with 46 "
+                             "tracklets")
     for flag, item in LEFT_OUT.items():
-        kind = dict(type=str, default=None) if flag in ("mesh", "gt_json") \
+        kind = dict(type=str, default=None) if flag == "mesh" \
             else dict(action="store_true")
         parser.add_argument(f"--{flag}", **kind,
                             help=f"not ported yet (ROADMAP {item}); raises")

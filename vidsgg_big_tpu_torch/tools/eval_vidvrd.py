@@ -1,21 +1,27 @@
 """Evaluate BIG-C v10 on VidVRD with the port: bucketed inference on the
 card, challenge-format conversion, relation-detection metrics.
 
-Counterpart of the JAX package's ``tools/eval_vidvrd.py`` (its GT comes from
-the records' own graphs, the reference's *_our_gt.py path).  Run as
+Counterpart of the JAX package's ``tools/eval_vidvrd.py``.  Run as
 
     python -m vidsgg_big_tpu_torch.tools.eval_vidvrd \\
-        --cfg_path experiments/exp2/config_.py --synthetic 16 \\
-        --synthetic_model_dims --batch_size 8 [--device cpu]
+        --cfg_path experiments/exp2/config_.py --batch_size 8 [--device cpu]
 
-This slice reads no dataset from disk: ``--synthetic N`` draws N in-memory
-records from ``data/synthetic.make_video``, as bench.py does.  Reading the
-on-disk VidVRD splits is a later slice of the port.  ``--ckpt_path`` takes a
-reference-named ``state_dict`` file or the checkpoint directory of
-``tools/train_vidvrd`` (its newest ``ckpt_*.pt``), as the JAX CLI serves
-its trainer's checkpoints.  ``--feat_dtype int8`` is exp2's quantized
-serving path: features packed as int8 with a scale per video, the
-encoder's first visual layer an int8 product.
+to read the config's ``test_dataset_config`` split in the reference layout
+(tracklet ``.npy`` files in the ``mega``, ``pku`` or ``pku_i3d`` format,
+``--fmt`` / ``--use_pku``; annotation JSONs; a per-video ``.npz`` cache
+under ``cache_dir``), with the GT of its annotations or of ``--gt_json``.
+``--synthetic N --synthetic_root DIR`` first writes N videos in that layout
+under DIR (``data/synthetic_raw``) and reads them; ``--synthetic N`` alone
+draws N in-memory records from ``data/synthetic.make_video`` instead, as
+bench.py does (with ``--synthetic_model_dims`` at bench.py's full-size
+recipe, packed at N=50 x T=256).  ``--ckpt_path`` takes a reference-named
+``state_dict`` file or the checkpoint directory of ``tools/train_vidvrd``
+(its newest ``ckpt_*.pt``); ``--tables_path`` a ``tables.npz`` of the
+frozen name embedding (and v7 position table).  ``--feat_dtype int8`` is
+exp2's quantized serving path: features packed as int8 with a scale per
+video, the encoder's first visual layer an int8 product.  Batches are
+packed on a prefetch thread into reused pinned slots and copied to the card
+on a copy stream (``data/transfer.StagingRing``).
 """
 from __future__ import annotations
 
@@ -24,12 +30,13 @@ import json
 import os
 import time
 
-import numpy as np
 import torch
 
 from ..data.bucketing import BucketSpec, bucketed_batches
+from ..data.prefetch import prefetch
 from ..data.synthetic_vidvrd import (FULL_SIZE_BUCKETS,
                                      SyntheticVidVRDSet)
+from ..data.transfer import StagingRing
 from ..evaluation.convert import EvalFmtCvtor
 from ..evaluation.metrics import eval_relation_with_gt
 from ..models.big_c import BigC, BigCConfig, load_bias_matrix
@@ -39,6 +46,8 @@ from ..train.train_state import checkpoint_steps
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
 from ..utils.logger import create_logger
+from .common import (first_feat_dim, load_side_tables, load_table,
+                     make_dataset, pipeline_summary)
 
 # seed of the random weights when no checkpoint is given
 WEIGHT_SEED = 0
@@ -48,16 +57,6 @@ def synthetic_records(n_videos: int, cfg: BigCConfig, model_dims: bool):
     """(proposal, GT) records, generated lazily, and their feature width."""
     data = SyntheticVidVRDSet(n_videos, cfg, model_dims)
     return (data[i] for i in range(n_videos)), data.feat_dim
-
-
-def load_table(path, shape):
-    """A .npy table from the config, or zeros where it is absent."""
-    if path and os.path.exists(path):
-        arr = np.load(path).astype(np.float32)
-        if arr.shape != tuple(shape):
-            raise ValueError(f"{path}: shape {arr.shape} != {shape}")
-        return arr
-    return np.zeros(shape, np.float32)
 
 
 def load_state(ckpt_path: str) -> dict:
@@ -76,19 +75,47 @@ def load_state(ckpt_path: str) -> dict:
 
 
 def build_model(cfg: BigCConfig, model_config: dict, ckpt_path=None,
-                seed: int = WEIGHT_SEED) -> BigC:
+                seed: int = WEIGHT_SEED, tables_path=None) -> BigC:
     """BigC on the CPU: random weights from ``seed`` and the config's name
-    and bias tables (zeros where their files are absent), or the weights of
-    a checkpoint (:func:`load_state`)."""
+    and bias tables (zeros where their files are absent), the name table
+    and v7 position table of ``tables_path`` where given
+    (``common.load_side_tables``), or the weights of a checkpoint
+    (:func:`load_state`)."""
     e, c = cfg.num_enti_cats, cfg.num_pred_cats
-    model = BigC(cfg, enti_name_emb=load_table(model_config.get(
-        "EntiNameEmb_path"), (e, cfg.dim_clsme)),
-        generator=torch.Generator().manual_seed(seed))
+    enti_emb, pos_tab = load_side_tables(tables_path, load_table(
+        model_config.get("EntiNameEmb_path"), (e, cfg.dim_clsme)))
+    model = BigC(cfg, enti_name_emb=enti_emb,
+                 generator=torch.Generator().manual_seed(seed),
+                 pos_emb_table=pos_tab)
     load_bias_matrix(model, load_table(model_config.get("bias_matrix_path"),
                                    (e, e, c)))
     if ckpt_path:
         model.load_state_dict(load_state(ckpt_path), strict=True)
     return model
+
+
+def split_records(args, cfg: BigCConfig, model_config: dict, split_cfg):
+    """(records, feature width, spec extras, dataset or None): the
+    in-memory synthetic records with ``--synthetic`` alone, else the split
+    of ``split_cfg`` in the reference layout (first written under
+    ``--synthetic_root`` with ``--synthetic``)."""
+    if args.synthetic and not args.synthetic_root:
+        data = SyntheticVidVRDSet(args.synthetic, cfg,
+                                  args.synthetic_model_dims)
+        extra = FULL_SIZE_BUCKETS if args.synthetic_model_dims else {}
+        return ((data[i] for i in range(args.synthetic)), data.feat_dim,
+                extra, None)
+    dims = ({"dim_feat": model_config["dim_feat"],
+             "dim_i3d": model_config.get("dim_i3d")}
+            if args.synthetic_model_dims else {})
+    # an explicit --fmt wins (exp1 is PKU without I3D: --use_pku --fmt
+    # pku); --use_pku alone means pku_i3d; with neither, the config's fmt
+    fmt = args.fmt or ("pku_i3d" if args.use_pku else None)
+    dataset, _ = make_dataset(split_cfg, "vidvrd", synthetic=args.synthetic,
+                              synthetic_root=args.synthetic_root, fmt=fmt,
+                              **dims)
+    feat_dim = first_feat_dim(item[0] for item in dataset)
+    return iter(dataset), feat_dim, {}, dataset
 
 
 def inference_then_eval(args) -> dict:
@@ -104,45 +131,56 @@ def inference_then_eval(args) -> dict:
     if args.compute_dtype:
         model_config = dict(model_config, compute_dtype=args.compute_dtype)
     cfg = BigCConfig.from_dict(model_config, variant="v10")
-    if not args.synthetic:
-        raise SystemExit("this port reads no VidVRD split from disk yet; "
-                         "pass --synthetic N")
-    records, feat_dim = synthetic_records(args.synthetic, cfg,
-                                          args.synthetic_model_dims)
-    spec = BucketSpec(feat_dim=feat_dim, feat_dtype=args.feat_dtype, **(
-        FULL_SIZE_BUCKETS if args.synthetic_model_dims else {}))
+    t0 = time.perf_counter()
+    records, feat_dim, extra, dataset = split_records(
+        args, cfg, model_config, all_cfgs.get("test_dataset_config", {}))
+    if dataset is not None:
+        logger.info(f"dataset: {len(dataset)} videos")
+    spec = BucketSpec(feat_dim=feat_dim, feat_dtype=args.feat_dtype, **extra)
 
-    model = build_model(cfg, model_config, args.ckpt_path)
+    model = build_model(cfg, model_config, args.ckpt_path,
+                        tables_path=args.tables_path)
     if args.ckpt_path:
         logger.info(f"loaded checkpoint {args.ckpt_path}")
     infer = build_infer_step(model.to(device), topk=topk)
-    feat_dtype = getattr(torch, args.feat_dtype)
     convertor = EvalFmtCvtor("vidvrd")
-    predict_relations, gt_relations = {}, {}
+    predict_relations = {}
+    # the GT graphs are collected in the streaming pass (they are small)
+    gt_relations = {} if not args.gt_json else None
     n_videos = n_batches = 0
     infer_s = 0.0
+    ring = StagingRing(device)
     logger.info(f"start inference on {device}...")
-    for _, rows, props, _ in bucketed_batches(records, spec, args.batch_size,
-                                              with_gt=False):
-        props = props.to(device, feats=feat_dtype)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        trip = infer(props).numpy()       # the host copy ends the device work
-        infer_s += time.perf_counter() - t0
-        n_batches += 1
-        # batch remainders repeat the last video; the dict update dedups them
-        for i, (prop, gt) in enumerate(rows):
-            predict_relations.update(
-                convertor.to_eval_format_pr(prop, trip.video(i)))
-            gt_relations.update(convertor.to_eval_format_gt(gt))
-            n_videos += 1
+    try:
+        for _, rows, props, _ in prefetch(bucketed_batches(
+                records, spec, args.batch_size, with_gt=False,
+                staging=ring)):
+            props = ring.ship(props)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            trip = infer(props).numpy()   # the host copy ends the device work
+            infer_s += time.perf_counter() - t1
+            n_batches += 1
+            # batch remainders repeat the last video; the dict update
+            # dedups them
+            for i, (prop, gt) in enumerate(rows):
+                predict_relations.update(convertor.to_eval_format_pr(
+                    prop, trip.video(i), use_pku=args.use_pku))
+                if gt_relations is not None and gt is not None:
+                    gt_relations.update(convertor.to_eval_format_gt(gt))
+                n_videos += 1
+    finally:
+        ring.close()
+    wall_s = time.perf_counter() - t0
     logger.info(f"inference done on {n_videos} videos in {n_batches} "
-                f"batches, {infer_s:.3f} s in forward + triplets")
+                f"batches, {infer_s:.3f} s in forward + triplets, "
+                f"{wall_s:.3f} s from the split's first read")
 
     mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
         dataset_type="vidvrd", logger=logger,
-        prediction_results=predict_relations, gt_relations=gt_relations)
+        prediction_results=predict_relations, gt_relations=gt_relations,
+        gt_relations_path=args.gt_json)
     metrics = {"mAP": float(mean_ap),
                "recall": {str(k): float(v) for k, v in rec_at_n.items()},
                "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
@@ -160,7 +198,9 @@ def inference_then_eval(args) -> dict:
         logger.info(f"predict_relations saved at {p}")
     return dict(metrics, n_videos=n_videos, n_batches=n_batches,
                 n_relations=sum(len(v) for v in predict_relations.values()),
-                infer_seconds=infer_s, device=str(device))
+                infer_seconds=infer_s, wall_seconds=wall_s,
+                pipeline=pipeline_summary(ring, dataset),
+                device=str(device))
 
 
 def parse_args(argv=None):
@@ -194,14 +234,31 @@ def parse_args(argv=None):
                         choices=("float32", "bfloat16"),
                         help="override the model compute dtype "
                              "(config key compute_dtype)")
+    parser.add_argument("--use_pku", action="store_true",
+                        help="PKU tracklets: pku_i3d format (unless --fmt) "
+                             "and PKU entity names")
+    parser.add_argument("--fmt", type=str, default=None,
+                        choices=("mega", "pku", "pku_i3d"),
+                        help="tracklet format; default the dataset "
+                             "config's, or pku_i3d with --use_pku")
+    parser.add_argument("--gt_json", type=str, default=None,
+                        help="challenge-format GT file (default: the GT of "
+                             "the split's annotations)")
+    parser.add_argument("--tables_path", type=str, default=None,
+                        help="tables.npz of the frozen name embedding "
+                             "(enti_name_emb) and position table")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="evaluate on N in-memory synthetic videos from "
-                             "data/synthetic.make_video (as bench.py); "
-                             "on-disk splits are not read yet")
+                        help="evaluate on N synthetic videos: written in "
+                             "the reference layout under --synthetic_root "
+                             "and read from there, or, without it, drawn "
+                             "in memory from data/synthetic.make_video (as "
+                             "bench.py)")
+    parser.add_argument("--synthetic_root", type=str, default=None,
+                        help="directory of the --synthetic split on disk")
     parser.add_argument("--synthetic_model_dims", action="store_true",
-                        help="full-size synthetic videos: features at the "
-                             "config's dims and bench.py's recipe, packed "
-                             "at N=50 tracklets x T=256 frames")
+                        help="synthetic features at the config's dims (in "
+                             "memory: bench.py's full-size recipe, packed "
+                             "at N=50 tracklets x T=256 frames)")
     return parser.parse_args(argv)
 
 

@@ -17,8 +17,10 @@ Port of the JAX package's ``train/loop.py``:
   and ``time/step_ms`` go to metrics.jsonl at full float precision, and
   every ``JOURNAL_EVERY`` steps the ``extra_metrics`` keys as
   ``loss/<key>``.
-* **Overlapped H2D**: ``preput`` moves batch N+1 to the card (pinned,
-  non-blocking) after step N is dispatched.
+* **Overlapped H2D**: ``preput`` moves batch N+1 to the card (a staged
+  copy on a copy stream, ``data/transfer.StagingRing``) after step N is
+  dispatched; each epoch's seconds and steps go to the journal as
+  ``time/epoch_s`` and ``time/epoch_steps``.
 """
 from __future__ import annotations
 
@@ -162,6 +164,8 @@ def run_epochs(state: TrainState, run_step, epoch_stream, *,
         if losses:
             writer.add_scalar("loss/epoch_mean", float(np.mean(losses)),
                               epoch)
+        writer.add_scalar("time/epoch_s", time.time() - t0, epoch)
+        writer.add_scalar("time/epoch_steps", n_done, epoch)
         logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s, mean "
                     f"loss {np.mean(losses) if losses else float('nan'):.4f}")
         writer.flush()

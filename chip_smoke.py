@@ -82,7 +82,7 @@ Phases; any failure exits non-zero and prints no result line:
      i-l each in float32 and in bfloat16;
      m. the on-disk route: splits written in the reference layout under
         build/chip_smoke/disk with the port's synthetic_raw (exp2 pku_i3d:
-        16 train + 8 test videos at bench.py's full-size recipe; VidOR: 8
+        8 train + 8 test videos at bench.py's full-size recipe; VidOR: 8
         train videos with their clip features + 4 val videos at the
         full-size recipe) and copies of the configs pointing at them, read
         by the entry points without --synthetic; train_vidvrd on exp2's
@@ -103,6 +103,20 @@ Phases; any failure exits non-zero and prints no result line:
         B's composed forward on the clip features read from disk;
      q. train_vidor --train_grounding on the train split's clip features,
         bfloat16, one epoch: the composed train forward and backward;
+     r. multi-GPU (run before m): at world size 1 (NCCL) train_vidvrd
+        --data_parallel and --mesh 1,1 (exp2 f32, 16 videos at batch 8),
+        train_vidor --train_grounding --data_parallel (bf16, batch 8),
+        eval_vidvrd --mesh 1 and eval_vidor --data_parallel, each bit-equal
+        to the same run without the flag (f, d, a, b), with the gradient
+        bytes reduced (none with one data rank); e's step with a 1 x 1
+        mesh and without, in turns, and the coalesced all-reduce that more
+        data ranks take alone; then tools/dryrun_multichip's four
+        phases (BIG-C train step and inference, grounding train step and
+        inference) at full widths on 2 and 4 gloo ranks sharing this card
+        (1-D and 2 x 2 data x model), each held against one process on the
+        card at the CPU tests' tolerances (the train steps' gradients too,
+        their max-pool picks and ReLU signs routed as the one process's
+        and their own held to be ties), their launches counted;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one exp2
@@ -298,12 +312,16 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def in_turns(fns):
+def in_turns(fns, iters=None):
     """{name: min ms} of each function, timed plain / kernel / kernel /
-    plain style: every name twice, in the order given and then reversed."""
+    plain style: every name twice, in the order given and then reversed;
+    ``iters`` maps a name to its calls a turn (5 where unnamed: the plain
+    versions of a second a call take 1)."""
+    iters = iters or {}
     times = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
-        times[name].append(cuda_ms(fns[name], iters=5, warmup=1))
+        times[name].append(cuda_ms(fns[name], iters=iters.get(name, 5),
+                                   warmup=1))
     log(f"times (ms, both turns): {times}")
     return {name: min(t) for name, t in times.items()}
 
@@ -571,7 +589,7 @@ def check_composed_attention():
                                                  DROPOUT, seeds),
             "library": lambda: F.scaled_dot_product_attention(
                 qh, kv, vt, attn_mask=mask, scale=scale,
-                dropout_p=DROPOUT).sum(1)})
+                dropout_p=DROPOUT).sum(1)}, iters={"plain": 1})
         bound_ms, bound_by = composed_bound(qh, x, vt, bias)
         log(f"composed_attention {dtype} R={G_B * G_Q} T={G_T}: kernel "
             f"{best['kernel']} ms, plain {best['plain']} ms, SDPA "
@@ -625,7 +643,8 @@ def check_composed_attention():
             "library_fwd_bwd": lambda: sdpa_fwd_bwd(0.0),
             "library_fwd": lambda: sdpa_fwd(0.0),
             "library_fwd_bwd_drop": lambda: sdpa_fwd_bwd(DROPOUT),
-            "library_fwd_drop": lambda: sdpa_fwd(DROPOUT)})
+            "library_fwd_drop": lambda: sdpa_fwd(DROPOUT)},
+            iters={"plain": 1})
         bwd_bound, bwd_by = composed_bwd_bound(qh, x, vt, bias)
         library = bwd["library_fwd_bwd"] - bwd["library_fwd"]
         library_drop = bwd["library_fwd_bwd_drop"] - bwd["library_fwd_drop"]
@@ -1332,6 +1351,176 @@ def serve_vidor_checkpoints(card, ckpts, baseline):
     return per_run
 
 
+# ---- multi-GPU (phase 3r) -------------------------------------------------
+
+# the dry run's gloo ranks sharing the card: a 1-D (2 data) and a 2 x 2
+# (data x model) layout
+DRYRUN_RANKS = (2, 4)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def same_journal(what, out, ref):
+    """Fail unless the loss journal at ``out`` equals ``ref``'s bit for
+    bit."""
+    got, want = journal(out, "loss/total"), journal(ref, "loss/total")
+    if got != want or len(want) < 2:
+        raise AssertionError(f"{what}: losses {got}, without the flag "
+                             f"{want}")
+
+
+def time_sync_path(card):
+    """The sync path's cost at world size 1 (NCCL): build_train_step at
+    3e's geometry (exp2 f32, B=8, dropout 0.1) with a 1 x 1 mesh and
+    without, in turns (plain, mesh, mesh, plain; TRAIN_STEPS after
+    TRAIN_WARMUP each; with one data rank the step reduces no gradient,
+    ``step_sync_bytes``), and the coalesced gradient all-reduce that D > 1
+    data ranks take a step, alone on the whole model's gradients (CUDA
+    events).  Returns the readings."""
+    from vidsgg_big_tpu_torch.data.synthetic_vidvrd import bench_train_batch
+    from vidsgg_big_tpu_torch.parallel.mesh import destroy_mesh, init_mesh
+    from vidsgg_big_tpu_torch.train.loop import step_generator
+    from vidsgg_big_tpu_torch.train.steps import build_train_step
+    from vidsgg_big_tpu_torch.train.train_state import (TrainState,
+                                                        all_reduce_coalesced)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_mesh(1, 1, "cuda", init_method=f"file://{tmp}/init",
+                         rank=0, world_size=1)
+        try:
+            steps, states = {}, {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                model, cfg = bigc_train_parts("float32")
+                states[name] = TrainState(model.cuda(), 1e-4, 0.2, [10_000],
+                                          mesh=m)
+                steps[name] = build_train_step(model, states[name])
+            batch = bench_train_batch(cfg, BATCH, "cuda", torch.float32)
+
+            def ms_per_step(step):
+                for i in range(TRAIN_WARMUP):
+                    step(*batch, generator=step_generator(1, i))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TRAIN_STEPS):
+                    m = step(*batch, generator=step_generator(1, i))
+                m["total"].item()
+                return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+            times = {"plain": [], "mesh": []}
+            for name in ("plain", "mesh", "mesh", "plain"):
+                times[name].append(ms_per_step(steps[name]))
+            grads = [torch.zeros_like(p) for p in states["mesh"].params]
+            sync_bytes = all_reduce_coalesced(grads, mesh.data_group)
+            sync_ms = cuda_ms(lambda: all_reduce_coalesced(
+                grads, mesh.data_group), iters=20, warmup=3)
+        finally:
+            destroy_mesh()
+    r = dict(ms_per_step=times, sync_ms=sync_ms, grad_sync_bytes=sync_bytes,
+             step_sync_bytes=states["mesh"].sync_bytes)
+    log(f"exp2 BIG-C train step f32 B={BATCH}, without and with a 1 x 1 "
+        f"mesh (NCCL), in turns: {json.dumps(r)}; {card}")
+    return r
+
+
+def same_metrics(what, got, want):
+    for key in ("mAP", "recall", "precision", "n_videos", "n_relations"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{what}: {key} {got[key]}, without the "
+                                 f"flag {want[key]}")
+
+
+def drive_multi_gpu(card, exp2, vidor):
+    """Phase 3r: the multi-GPU path.  At world size 1 (NCCL, this card)
+    through the four entry points, each against the same run without the
+    flag earlier in this script, bit for bit: train_vidvrd --data_parallel
+    and --mesh 1,1 (exp2 f32, 16 videos at batch 8, against 3f),
+    train_vidor --train_grounding --data_parallel (bf16, 16 videos at batch
+    8, against 3d), eval_vidvrd --mesh 1 (against 3a f32) and eval_vidor
+    --data_parallel (against 3b f32), the gradient bytes each step reduces;
+    the sync path's cost (``time_sync_path``).  Then
+    tools/dryrun_multichip at 2 and 4 gloo ranks on this card at full
+    widths (exp2 BIG-C, grounding_weights), each phase against one process
+    on the card.  Returns ({dtype: {kernel: launches}}, readings)."""
+    from vidsgg_big_tpu_torch.tools import (dryrun_multichip, eval_vidor,
+                                            eval_vidvrd, train_vidor,
+                                            train_vidvrd)
+    per_run = {"float32": {}, "bfloat16": {}}
+    readings = {}
+    root = os.path.join(OUT_DIR, "multi_gpu")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def counted(dtype, fn):
+        reset_counts()
+        out = fn()
+        add_counts(per_run[dtype], read_counts())
+        return out
+
+    base = ["--cfg_path", EXP2_CFG, "--synthetic", str(BIGC_ENTRY_VIDEOS),
+            "--synthetic_model_dims", "--batch_size", str(BATCH),
+            "--epochs", "1", "--compute_dtype", "float32", "--device",
+            "cuda"]
+    ref = os.path.join(OUT_DIR, "train_vidvrd_float32", "full")
+    for flag in (["--data_parallel"], ["--mesh", "1,1"]):
+        out = os.path.join(root, "train_vidvrd_" + flag[-1].strip("-"))
+        summary = counted("float32", lambda: train_vidvrd.main(
+            base + flag + ["--output_dir", out]))
+        same_journal(f"train_vidvrd {flag}", out, ref)
+        log(f"train_vidvrd f32 {' '.join(flag)} (world size 1, NCCL): "
+            f"losses bit-equal to the run without it; mesh "
+            f"{summary['mesh']}, {summary['grad_sync_bytes']} gradient "
+            "bytes reduced a step")
+    run = ENTRY_RUNS["bfloat16"]
+    out = os.path.join(root, "train_grounding_data_parallel")
+    summary = counted("bfloat16", lambda: train_vidor.main([
+        "--train_grounding", "--cfg_path", GRD_CFG, "--synthetic",
+        str(run["videos"]), "--synthetic_model_dims", "--batch_size",
+        str(run["batch"]), "--epochs", "1", "--compute_dtype", "bfloat16",
+        "--device", "cuda", "--data_parallel", "--output_dir", out]))
+    same_journal("train_vidor --train_grounding --data_parallel", out,
+                 os.path.join(OUT_DIR, "train_vidor_bfloat16"))
+    log(f"train_vidor --train_grounding bf16 batch {run['batch']} "
+        f"--data_parallel: losses bit-equal to 3d's; mesh {summary['mesh']},"
+        f" {summary['grad_sync_bytes']} gradient bytes reduced a step")
+    if summary["mesh"] != [1, 1]:
+        raise AssertionError(f"--data_parallel on one card: mesh "
+                             f"{summary['mesh']}")
+    readings["sync_path"] = time_sync_path(card)
+    res = counted("float32", lambda: eval_vidvrd.main([
+        "--cfg_path", EXP2_CFG, "--synthetic", str(N_VIDEOS),
+        "--synthetic_model_dims", "--batch_size", str(BATCH), "--device",
+        "cuda", "--output_dir", root, "--mesh", "1"]))
+    same_metrics("eval_vidvrd --mesh 1", res, exp2["float32"])
+    log(f"eval_vidvrd f32 --mesh 1: metrics equal to 3a's: {json.dumps(res)}")
+    res = counted("float32", lambda: eval_vidor.main([
+        "--cfg_path", EXP4_CFG, "--grounding_cfg_path", GRD_CFG,
+        "--synthetic", str(VIDOR_VIDEOS), "--synthetic_model_dims",
+        "--batch_size", str(VIDOR_BATCH), "--topk", str(VIDOR_TOPK),
+        "--device", "cuda", "--output_dir", root, "--data_parallel"]))
+    same_metrics("eval_vidor --data_parallel", res, vidor["float32"])
+    log(f"eval_vidor f32 --data_parallel: metrics equal to 3b's: "
+        f"{json.dumps(res)}")
+    # the ranks share this card: hand its cached blocks back first
+    torch.cuda.empty_cache()
+    reference = {}          # both layouts hold the same batch of 2 videos
+    for n in DRYRUN_RANKS:
+        t0 = time.perf_counter()
+        out = dryrun_multichip.dryrun(n, "cuda", "gloo", "full", log=log,
+                                      reference=reference)
+        seconds = time.perf_counter() - t0
+        add_counts(per_run["float32"], out["launches"])
+        readings[f"dryrun_multichip {n}"] = r = dict(
+            layout=out["layout"], batch=out["batch"], errors=out["errors"],
+            launches=out["launches"], seconds=seconds)
+        log(f"dryrun_multichip({n}) on one card (gloo): {json.dumps(r)}; "
+            f"{card}")
+        if not all(out["launches"].values()):
+            raise AssertionError(f"dryrun_multichip({n}): a kernel was not "
+                                 f"launched: {out['launches']}")
+    return per_run, readings
+
+
 # ---- the on-disk route (phases 3m-3q) -------------------------------------
 
 DISK_DIR = os.path.join(OUT_DIR, "disk")
@@ -1341,11 +1530,12 @@ DISK_DIR = os.path.join(OUT_DIR, "disk")
 # clips).  VidOR's score_th 0.4 keeps the 12 GT tracklets and about 40% of
 # the distractors (N=32 rung), so its float32 records are 0.69 GB at T=4096
 # and the 8 train videos go past the default 4 GB device cache in float32
-# (not in bfloat16)
-EXP2_DISK_TRAIN, EXP2_DISK_TEST = 16, 8
+# (not in bfloat16).  exp2's 8 train videos make one batch an epoch (16
+# did until the multi-GPU phase needed the time)
+EXP2_DISK_TRAIN, EXP2_DISK_TEST = 8, 8
 VIDOR_DISK_TRAIN, VIDOR_DISK_VAL = 8, 4
-# 16 exp2 records on the JAX CLI's default ladder (N=64, T=512) hold 6.0 GB
-# in float32, past the default 4 GB budget: phase 3m gives the cache 8 GB
+# exp2 records on the JAX CLI's default ladder (N=64, T=512) hold 377 MB
+# each in float32; phase 3m gives the cache 8 GB
 EXP2_DISK_CACHE_GB = 8.0
 # the float32 VidOR run whose cache goes over its budget ends with at most
 # this much more memory allocated than the run without a cache (a captured
@@ -1494,7 +1684,8 @@ def drive_disk_train_vidvrd(card, cfg):
             out, card)
     counts = read_counts()
     n = len(losses["cache_on"])
-    if sorted(losses["cache_on"]) != list(range(1, n + 1)) or n < 4 or \
+    if sorted(losses["cache_on"]) != list(range(1, n + 1)) or \
+            n != 2 * -(-EXP2_DISK_TRAIN // BATCH) or \
             not all(math.isfinite(v) for v in losses["cache_on"].values()):
         raise AssertionError(f"train_vidvrd from disk: {losses}")
     if losses["cache_on"] != losses["cache_off"]:
@@ -2355,6 +2546,9 @@ def main(argv=None):
             drive_vidor_training(card, baseline)
         by_path[f"eval_vidor_{tag}_checkpoint"] = serve_vidor_checkpoints(
             card, cls_ckpts, baseline)
+    t0 = time.perf_counter()
+    by_path["multi_gpu"], multi_gpu = drive_multi_gpu(card, exp2, vidor)
+    log(f"the multi-GPU phase took {time.perf_counter() - t0:.1f} s")
     # the on-disk route: splits in the reference layout, read by the entry
     # points without --synthetic
     t0 = time.perf_counter()

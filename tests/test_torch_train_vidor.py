@@ -103,12 +103,14 @@ def test_ckpt_every_defaults_to_the_reference_cadence():
 
 
 def test_left_out_modes_raise():
-    """Every mode runs now; the flags left out raise naming their item."""
-    for extra, item in ((["--mesh", "1,1"], "A9"), (["--data_parallel"],
-                                                     "A9")):
-        for mode in (BASE, CLS_BASE, CLS_BASE + ["--train_baseline"]):
-            with pytest.raises(NotImplementedError, match=item):
-                train_vidor.main(mode + extra)
+    """Every mode takes the multi-GPU flags now (ROADMAP A9): a malformed
+    --mesh raises naming the flag, and a mesh whose data axis does not
+    divide the batch raises, as the JAX CLI's assert."""
+    for mode in (BASE, CLS_BASE, CLS_BASE + ["--train_baseline"]):
+        with pytest.raises(ValueError, match="--mesh"):
+            train_vidor.main(mode + ["--mesh", "1,2,3"])
+        with pytest.raises(ValueError, match="divisible"):
+            train_vidor.main(mode + ["--mesh", "2", "--batch_size", "3"])
 
 
 # ---- the classification modes: BIG-C v7 (no flag) and Base-C ------------

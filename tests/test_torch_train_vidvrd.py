@@ -103,9 +103,19 @@ def test_stop_and_resume_is_bit_equal(full_run, tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--data_parallel"], "A9"), (["--mesh", "2,1"], "A9")],
     ids=lambda v: v if isinstance(v, str) else v[0])
-def test_left_out_flags_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_vidvrd.main(BASE + extra)
+def test_left_out_flags_raise(extra, item, full_run, tmp_path):
+    """The multi-GPU flags are ported (ROADMAP A9): --data_parallel on the
+    CPU is one rank, run in this process, whose journal is the plain run's
+    bit for bit; a --mesh whose data axis does not divide the batch raises,
+    as the JAX CLI's assert."""
+    if extra[0] == "--data_parallel":
+        summary = train_vidvrd.main(BASE + extra + [
+            "--output_dir", str(tmp_path), "--ckpt_every", "1"])
+        assert summary["mesh"] == [1, 1]
+        assert _losses(str(tmp_path)) == _losses(full_run[0])
+        return
+    with pytest.raises(ValueError, match="divisible"):
+        train_vidvrd.main(BASE + extra + ["--batch_size", "3"])
 
 
 def test_int8_wire_trains(full_run, tmp_path):

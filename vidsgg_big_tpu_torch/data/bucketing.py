@@ -120,10 +120,24 @@ def stream_buckets(items: Iterable, key_of, batch_size: int,
             yield key, rows[i:i + batch_size], min(batch_size, n_real - i)
 
 
+def shard_range(b: int, shard) -> tuple:
+    """(first, end) of the rows that ``shard`` = (index, count) takes of a
+    batch of ``b`` rows (all of them where ``shard`` is None); ``count``
+    must divide ``b``."""
+    if shard is None:
+        return 0, b
+    i, n = shard
+    if b % n:
+        raise ValueError(f"a batch of {b} does not divide over {n} data "
+                         "ranks")
+    return i * (b // n), (i + 1) * (b // n)
+
+
 def bucketed_batches(items: Iterable, spec: BucketSpec, batch_size: int,
                      with_gt: bool = True, shuffle: bool = False,
                      seed: int = 0, drop_last: bool = False,
-                     max_pending: int | None = None, staging=None):
+                     max_pending: int | None = None, staging=None,
+                     shard=None):
     """Yield (bucket_key, [records], TrackletBatch, GraphBatch | None).
 
     items: iterable of (VideoProposalRecord, VideoGTRecord | None).  Videos
@@ -134,7 +148,9 @@ def bucketed_batches(items: Iterable, spec: BucketSpec, batch_size: int,
     ``iter_shuffled(dataset, seed)``.  Leaves are numpy, or, with
     ``staging`` (a ``transfer.StagingRing``), tensors in one of its slots
     with the features in ``spec.feat_dtype``; the pack time of each batch
-    goes to ``staging.pack_seconds``.
+    goes to ``staging.pack_seconds``.  ``shard`` = (index, count) packs
+    only that data rank's rows of each batch, grouped and bucketed as the
+    whole batch (the records of the whole batch are still yielded).
     """
     if shuffle:
         items = list(items)
@@ -143,8 +159,10 @@ def bucketed_batches(items: Iterable, spec: BucketSpec, batch_size: int,
 
     def emit_staged(key, rows, n_real):
         n, t = key[0], key[1]
+        lo, hi = shard_range(len(rows), shard)
+        rows = rows[lo:hi]
         b = len(rows)
-        real = torch.arange(b) < n_real
+        real = torch.arange(lo, hi) < n_real
         with_g = with_gt and rows[0][1] is not None
         leaves = tracklet_leaves(b, n, t, spec.feat_dim,
                                  getattr(torch, spec.feat_dtype))
@@ -182,17 +200,19 @@ def bucketed_batches(items: Iterable, spec: BucketSpec, batch_size: int,
             staging.pack_seconds.append(time.perf_counter() - t0)
             return key, rows[:n_real], props, gts
         n, t = key[0], key[1]
+        lo, hi = shard_range(len(rows), shard)
+        mine = rows[lo:hi]
         props = stack_batches([pack_proposal(r[0], n, t, spec.feat_dim,
-                                             np_dtype) for r in rows])
-        real = np.arange(len(rows)) < n_real
-        if n_real < len(rows):
+                                             np_dtype) for r in mine])
+        real = np.arange(lo, hi) < n_real
+        if not real.all():
             props = props.replace(traj_mask=props.traj_mask & real[:, None])
         gts = None
         if with_gt and rows[0][1] is not None:
             tg, gb = key[2], key[3]
             gts = stack_batches([pack_gt(r[1], gb, tg, spec.p_bucket)
-                                 for r in rows])
-            if n_real < len(rows):
+                                 for r in mine])
+            if not real.all():
                 gts = gts.replace(traj_mask=gts.traj_mask & real[:, None],
                                   pred_mask=gts.pred_mask & real[:, None])
         return key, rows[:n_real], props, gts

@@ -29,6 +29,7 @@ from torch import nn
 from ..data.types import GraphBatch, TrackletBatch
 from ..ops.boxes import viou_matrix_grid
 from ..ops.segments import stretch_weighted_mean
+from ..parallel.mesh import data_sum
 from .big_c import TrackletEncoder, dequantize_extra
 from .layers import MLP
 
@@ -191,10 +192,11 @@ def basec_multihot(props: TrackletBatch, gts: GraphBatch,
 
 
 def basec_train_loss(outputs, props: TrackletBatch, gts: GraphBatch,
-                     cfg: BaseCConfig, t_abs: int = 1024):
+                     cfg: BaseCConfig, t_abs: int = 1024, mesh=None):
     """Multi-label BCE over the positive pairs only (JAX :184-200;
     reference pairwise_baseline.py:276-310).  ``t_abs`` must cover the
-    video-length bound (VidOR: 4096).  Returns (cls, {"cls": cls})."""
+    video-length bound (VidOR: 4096); under a ``mesh`` the denominator is
+    summed over the data ranks.  Returns (cls, {"cls": cls})."""
     with torch.no_grad():
         multihot, pair_pos = basec_multihot(
             props, gts, cfg.num_pred_cats, cfg.positive_viou_th,
@@ -206,6 +208,7 @@ def basec_train_loss(outputs, props: TrackletBatch, gts: GraphBatch,
     bce = torch.maximum(logits, torch.zeros_like(logits)) \
         - logits * labels + torch.log1p(torch.exp(-logits.abs()))
     w = pos[..., None].float()
-    denom = torch.clamp(w.sum() * logits.shape[-1], min=1.0)
+    denom = torch.clamp(data_sum(w.sum(), mesh) * logits.shape[-1],
+                        min=1.0)
     cls = (bce * w).sum() / denom
     return cls, {"cls": cls}

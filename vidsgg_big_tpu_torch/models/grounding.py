@@ -24,9 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (attn_chunked_stored, chunked_attention,
-                             composed_qkvo, dropout)
+                             composed_qkvo, dropout, row_share)
 from ..ops.composed_attn import fused_composed_attention
 from ..ops.temporal import tiou, tiou_left_right
+from ..parallel.mesh import data_sum
 from .layers import LN_EPS, MultiHeadAttention, _linear, sine_pos_embedding
 
 HEADS = 8        # QANet attention heads (reference grd_model_v5.py:103)
@@ -225,8 +226,10 @@ class QANetEncoderLayer(nn.Module):
         a = self.mh_attn
         hd = d // HEADS
         p = self.attn_dropout if self.training else 0.0
+        # a sharded train step picks the single process's lowering, by the
+        # global batch's rows, so that it draws the same masks
         way, chunk = attention_lowering(
-            b, t, d, self.attn_bytes_budget,
+            b * row_share(generator)[1], t, d, self.attn_bytes_budget,
             composed=self.composed and not (self.flash_only and p > 0.0))
         if way == "composed":
             comp = composed_qkvo(*self._head_weights())
@@ -436,7 +439,7 @@ def _bce_logits(logits, target):
 
 
 def grounding_loss(outputs, neg_outputs, labels, group_rep, is_rep,
-                   query_mask, clip_mask, cfg: GroundingConfig):
+                   query_mask, clip_mask, cfg: GroundingConfig, mesh=None):
     """Loss over one padded batch (``grounding_loss`` of the JAX package).
 
     Args:
@@ -449,6 +452,7 @@ def grounding_loss(outputs, neg_outputs, labels, group_rep, is_rep,
       group_rep: (B, Q) index of each slot's dedup-group representative.
       is_rep: (B, Q) bool, True on group representatives.
       query_mask: (B, Q); clip_mask: (B, T).
+      mesh: the counts are summed over its data ranks (global means).
 
     Returns (total, {pos_cls, neg_cls, pos_ct, neg_ct, regr}).
     """
@@ -474,12 +478,12 @@ def grounding_loss(outputs, neg_outputs, labels, group_rep, is_rep,
 
     valid_qc = query_mask[:, :, None] & clip_mask[:, None, :]    # (B, Q, T)
     wq = valid_qc.to(torch.float32)
-    n_pos = torch.clamp(wq.sum(), min=1.0)
+    n_pos = torch.clamp(data_sum(wq.sum(), mesh), min=1.0)
     pos_cls_loss = (_bce_logits(pos_cls, gt_scores) * wq).sum() / n_pos
 
     ct_mask = (gt_ctness > 0) & valid_qc
     wct = ct_mask.to(torch.float32)
-    n_ct = torch.clamp(wct.sum(), min=1.0)
+    n_ct = torch.clamp(data_sum(wct.sum(), mesh), min=1.0)
     pos_ct_loss = (_bce_logits(pos_conf, gt_ctness) * wct).sum() / n_ct
     reg_iou = tiou_left_right(pos_regr, torch.where(ct_mask[..., None],
                                                     gt_regrs, 1.0))
@@ -500,7 +504,7 @@ def grounding_loss(outputs, neg_outputs, labels, group_rep, is_rep,
     # (b) negative-predicate queries (representative slots), all bins
     w_nq = (is_rep[:, :, None, None] & valid_qc[..., None]).to(
         torch.float32) * torch.ones((1, 1, 1, k), device=conf.device)
-    n_neg = torch.clamp(w_nb.sum() + w_nq.sum(), min=1.0)
+    n_neg = torch.clamp(data_sum(w_nb.sum() + w_nq.sum(), mesh), min=1.0)
     neg_cls_loss = ((_bce_logits(cls, 0.0) * w_nb).sum() +
                     (_bce_logits(n_cls, 0.0) * w_nq).sum()) / n_neg
     neg_ct_loss = ((_bce_logits(conf, 0.0) * w_nb).sum() +

@@ -12,6 +12,14 @@ step's randomness is a function of that generator alone.  An int8 input
 to an :class:`MLP` (int8 feature storage) runs its first layer as an int8
 product with int32 accumulation (JAX ``Int8Dense``, ``models/layers.py:
 53-79``) and the later layers in bfloat16.
+
+Tensor parallelism (``parallel/sharding.py``): a layer whose ``tp`` is a
+``parallel.mesh.ModelAxis`` holds this rank's part of its parameters and
+runs Megatron's pattern, the input through ``copy_to_model``, a
+column-parallel product, the elementwise work on the feature shard, a
+row-parallel product summed by ``reduce_from_model``, then the bias once.
+A dropout on a feature shard draws this rank's features of the
+single-process mask.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from torch import nn
 
 from ..ops.attention import dropout
 from ..ops.role_attn import role_attention, role_attention_plain
+from ..parallel.mesh import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6      # flax nn.LayerNorm's default (torch's is 1e-5)
 _LOW = (torch.bfloat16, torch.float16)
@@ -36,6 +45,16 @@ def _linear(layer: nn.Linear, x):
         bias = None if layer.bias is None else layer.bias.to(x.dtype)
         return F.linear(x, layer.weight.to(x.dtype), bias)
     return layer(x)
+
+
+def _row_parallel(layer: nn.Linear, x, axis):
+    """A row-parallel ``layer(x)``: this rank's partial product summed over
+    the model axis, then the (replicated) bias, in x's dtype as
+    :func:`_linear`."""
+    low = x.dtype in _LOW
+    y = reduce_from_model(F.linear(x, layer.weight.to(x.dtype) if low
+                                   else layer.weight), axis)
+    return y + (layer.bias.to(x.dtype) if low else layer.bias)
 
 
 def sine_pos_embedding(length: int, d_model: int) -> np.ndarray:
@@ -113,13 +132,18 @@ class MLP(nn.Sequential):
                 mods.append(nn.ReLU())
             d = f
         super().__init__(*mods)
+        self.tp = None       # tensor parallel: layer 0 column, 2 row
 
     def forward(self, x, input_scale=None):
         for i, m in enumerate(self):
+            if i == 0:
+                x = copy_to_model(x, self.tp)
             if i == 0 and x.dtype == torch.int8:
                 if input_scale is None:
                     raise ValueError("an int8 MLP input needs its scale")
                 x = int8_linear(m, x, input_scale)
+            elif i == 2 and self.tp is not None:
+                x = _row_parallel(m, x, self.tp)
             else:
                 x = _linear(m, x) if isinstance(m, nn.Linear) else m(x)
         return x
@@ -156,11 +180,20 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        self.tp = None       # tensor parallel: this rank's heads
 
     def forward(self, q, k, v, key_mask=None, generator=None):
         # q: (B, Lq, D); k, v: (B, Lk, D); key_mask: (B, Lk) bool (True=valid)
-        h, d = self.num_heads, self.dim
-        hd = d // h
+        tp = self.tp
+        n = 1 if tp is None else tp.size
+        h, d = self.num_heads // n, self.dim // n     # this rank's heads
+        hd = self.dim // self.num_heads
+        if tp is not None:
+            ins = {}
+            for x in (q, k, v):
+                if id(x) not in ins:
+                    ins[id(x)] = copy_to_model(x, tp)
+            q, k, v = (ins[id(x)] for x in (q, k, v))
         w, b = self.in_proj_weight, self.in_proj_bias
 
         def heads(x, i):
@@ -175,9 +208,13 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(logits, dim=-1)
         if key_mask is not None:
             attn = attn.masked_fill(~valid, 0.0)
-        attn = dropout(attn, self.dropout, generator, self.training)
+        attn = dropout(attn, self.dropout, generator, self.training,
+                       feature_dim=None if tp is None else 1)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
-        return self.out_proj(out.reshape(*out.shape[:-2], d))
+        out = out.reshape(*out.shape[:-2], d)
+        if tp is None:
+            return self.out_proj(out)
+        return _row_parallel(self.out_proj, out, tp)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -192,13 +229,19 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.dropout = dropout
+        self.tp = None       # tensor parallel: linear1 column, linear2 row
 
     def forward(self, src, key_mask=None, pos=None, generator=None):
-        drop = lambda x: dropout(x, self.dropout, generator, self.training)
+        drop = lambda x, fd=None: dropout(x, self.dropout, generator,
+                                          self.training, fd)
         qk = src if pos is None else src + pos
         src = self.norm1(src + drop(self.self_attn(qk, qk, src, key_mask,
                                                    generator)))
-        src2 = self.linear2(drop(F.relu(self.linear1(src))))
+        if self.tp is None:
+            src2 = self.linear2(drop(F.relu(self.linear1(src))))
+        else:
+            hid = F.relu(self.linear1(copy_to_model(src, self.tp)))
+            src2 = _row_parallel(self.linear2, drop(hid, -1), self.tp)
         return self.norm2(src + drop(src2))
 
 
@@ -232,6 +275,7 @@ class RoleAttnDecoderLayer(nn.Module):
                                  Dropout(dropout),
                                  nn.Linear(dim_ffn, dim_pred))
         self.norm3 = nn.LayerNorm(dim_pred, eps=LN_EPS)
+        self.tp = None       # tensor parallel: fc2.0 column, fc2.3 row
 
     def forward(self, pred_query, pos_emb, enco_output, traj_mask,
                 generator=None):
@@ -253,6 +297,11 @@ class RoleAttnDecoderLayer(nn.Module):
                   + self.fc_rolewise[1](values[:, 1]))
         pred_query = self.norm2(pred_query + role_q)
         lin1, relu, drop, lin2 = self.fc2
-        ffn = lin2(drop(relu(lin1(pred_query)), generator))
+        if self.tp is None:
+            ffn = lin2(drop(relu(lin1(pred_query)), generator))
+        else:
+            hid = relu(lin1(copy_to_model(pred_query, self.tp)))
+            ffn = _row_parallel(lin2, dropout(hid, drop.p, generator,
+                                              self.training, -1), self.tp)
         pred_query = self.norm3(pred_query + ffn)
         return pred_query, att

@@ -13,10 +13,18 @@ Port of the JAX package's ``ops/attention.py``:
   is stored in the value dtype with its bit-packed dropout keep-mask, so the
   backward recomputes nothing.  Its keep-mask is drawn at the 16-bit
   realized rate :func:`drop_rate_eff`, as the JAX path's.
+
+Every random draw goes through :func:`draw_share`: a step sharded over
+ranks (``parallel/``) hands its layers a :class:`ShardedDraws` in place of
+the generator, and each draw is made at the global batch's shape and cut
+to this rank's rows (and, in a tensor-parallel layer, to its features), so
+a sharded step draws the bits of the single-process step.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -48,20 +56,69 @@ def device_generator(generator, device):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def dropout_mask(shape, p: float, generator, device):
+@dataclasses.dataclass(frozen=True)
+class ShardedDraws:
+    """A step's generator and this rank's share of every draw from it:
+    ``rows`` = (index, count) of the leading (batch-major) axis, split in
+    ``count`` equal parts, and ``features`` = (index, count) of the axis a
+    tensor-parallel layer shards (its heads or hidden features)."""
+    generator: Optional[torch.Generator]
+    rows: tuple = (0, 1)
+    features: tuple = (0, 1)
+
+
+def base_generator(generator):
+    """The torch generator behind ``generator`` (a :class:`ShardedDraws`
+    or a generator or None)."""
+    return generator.generator if isinstance(generator, ShardedDraws) \
+        else generator
+
+
+def row_share(generator) -> tuple:
+    """(index, count) of this rank's rows: (0, 1) unless sharded."""
+    return generator.rows if isinstance(generator, ShardedDraws) else (0, 1)
+
+
+def draw_share(generator, shape, make, feature_dim: Optional[int] = None):
+    """``make(shape, torch generator)`` made at the global shape and cut to
+    this rank's share.  ``shape`` is the rank's; its leading axis is a
+    ``rows`` share of the global one and, where ``feature_dim`` is given,
+    that axis a ``features`` share.  Unsharded, ``make`` runs at ``shape``
+    itself, so the draw is the single-process draw."""
+    g = base_generator(generator)
+    if not isinstance(generator, ShardedDraws):
+        return make(tuple(shape), g)
+    (ri, rn), (fi, fn) = generator.rows, generator.features
+    cuts = [(0, ri, rn)]
+    if feature_dim is not None and fn > 1:
+        cuts.append((feature_dim % len(shape), fi, fn))
+    full = list(shape)
+    for dim, _, n in cuts:
+        full[dim] *= n
+    out = make(tuple(full), g)
+    for dim, i, _ in cuts:
+        out = out.narrow(dim, i * shape[dim], shape[dim])
+    return out
+
+
+def dropout_mask(shape, p: float, generator, device,
+                 feature_dim: Optional[int] = None):
     """Bernoulli(1 - p) keep-mask (flax ``nn.Dropout``'s), drawn from
-    ``generator`` (see :func:`device_generator`)."""
-    g = device_generator(generator, device)
-    return torch.rand(shape, generator=g, device=device) >= p
+    ``generator`` (see :func:`device_generator`, :func:`draw_share`)."""
+    return draw_share(generator, shape, lambda s, g: torch.rand(
+        s, generator=device_generator(g, device), device=device) >= p,
+        feature_dim)
 
 
-def dropout(x, p: float, generator=None, training: bool = True):
+def dropout(x, p: float, generator=None, training: bool = True,
+            feature_dim: Optional[int] = None):
     """flax ``nn.Dropout``: keep with probability 1 - p and rescale kept
     values by 1 / (1 - p) in x's dtype; the identity in eval mode or at
-    p = 0.  Unlike ``F.dropout`` the mask comes from ``generator``."""
+    p = 0.  Unlike ``F.dropout`` the mask comes from ``generator``;
+    ``feature_dim`` names the axis a tensor-parallel layer shards."""
     if not training or p <= 0.0:
         return x
-    keep = dropout_mask(x.shape, p, generator, x.device)
+    keep = dropout_mask(x.shape, p, generator, x.device, feature_dim)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -107,11 +164,10 @@ def keep_mask16(shape, dropout: float, generator, device):
     """Bernoulli(1 - drop_rate_eff(dropout)) keep-mask from 16-bit draws of
     ``generator`` (the JAX path draws 16-bit halves of the TPU's hardware
     RNG words at the same threshold)."""
-    g = device_generator(generator, device)
     thr = round(dropout * 65536.0)
-    bits = torch.randint(0, 1 << 16, shape, generator=g, device=device,
-                         dtype=torch.int32)
-    return bits >= thr
+    return draw_share(generator, shape, lambda s, g: torch.randint(
+        0, 1 << 16, s, generator=device_generator(g, device), device=device,
+        dtype=torch.int32) >= thr)
 
 
 _BIT_WEIGHTS = [1 << i for i in range(8)]
@@ -142,7 +198,7 @@ class _BlockStored(torch.autograd.Function):
     and the bit-packed keep-mask; the backward recomputes nothing."""
 
     @staticmethod
-    def forward(ctx, qc, kc, vc, mc, dropout, generator):
+    def forward(ctx, qc, kc, vc, mc, dropout, keep):
         hd = qc.shape[-1]
         lg = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() / math.sqrt(hd)
         valid = mc[:, None, None, :]
@@ -151,7 +207,6 @@ class _BlockStored(torch.autograd.Function):
         at_d, packed = at, None
         if dropout > 0.0:
             p = drop_rate_eff(dropout)
-            keep = keep_mask16(at.shape, dropout, generator, at.device)
             at_d = torch.where(keep, at / (1.0 - p), torch.zeros_like(at))
             packed = _pack_bits(keep)
         ctx.save_for_backward(qc, kc, vc, mc, at, packed)
@@ -187,13 +242,30 @@ def attn_chunked_stored(q, k, v, mask, *, chunk: int, dropout: float = 0.0,
     """Chunked exact attention with a stored softmax, (B, T, h, hd) ->
     (B, T, h, hd): the same function as :func:`chunked_attention`, with a
     recompute-free backward; the keep-mask of ``dropout`` > 0 is drawn from
-    ``generator`` at :func:`drop_rate_eff`, one draw per chunk in order."""
-    b = q.shape[0]
-    if b % chunk:
+    ``generator`` at :func:`drop_rate_eff`, one draw per chunk in order.
+
+    Under a :class:`ShardedDraws` generator ``chunk`` is a chunk of the
+    global batch: every global chunk's mask is drawn in order, as the
+    single process draws them, and this rank's rows of each are kept."""
+    b, _, h, _ = q.shape
+    t = k.shape[1]
+    ri, rn = row_share(generator)
+    total, lo = b * rn, b * ri
+    if total % chunk:
         raise ValueError(f"attn_chunked_stored: chunk {chunk} does not "
-                         f"divide the batch {b}")
-    outs = [_BlockStored.apply(q[s:s + chunk], k[s:s + chunk],
-                               v[s:s + chunk], mask[s:s + chunk],
-                               float(dropout), generator)
-            for s in range(0, b, chunk)]
+                         f"divide the batch {total}")
+    g = base_generator(generator)
+    outs = []
+    for s in range(0, total, chunk):
+        a, z = max(s, lo), min(s + chunk, lo + b)
+        keep = None
+        if dropout > 0.0:
+            keep = keep_mask16((chunk, h, t, t), dropout, g, q.device)
+        if a >= z:
+            continue
+        rows = slice(a - lo, z - lo)
+        if keep is not None:
+            keep = keep[a - s:z - s]
+        outs.append(_BlockStored.apply(q[rows], k[rows], v[rows], mask[rows],
+                                       float(dropout), keep))
     return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from .attention import draw_share
 from .philox import attention_keep, drop_threshold
 
 # the plain versions hold at most this many bytes of float32 logits at once
@@ -340,7 +341,8 @@ def fused_composed_attention(x, mask, wqk, wb, wvo, cb, *, hd: int,
     is the original head_dim (the softmax scale is 1/sqrt(hd)); ``mask``
     (B, T) marks valid keys, None for all.  With ``dropout`` > 0 the (B,)
     per-row seeds are drawn from ``generator`` (as pallas_attention.py:352-356
-    draws them from ``rng``).  When a gradient is wanted the call goes
+    draws them from ``rng``; a :class:`~.attention.ShardedDraws` gives
+    this rank's rows of the global batch's seeds).  When a gradient is wanted the call goes
     through :class:`ComposedAttention`.
     """
     b, t, _ = x.shape
@@ -353,8 +355,11 @@ def fused_composed_attention(x, mask, wqk, wb, wvo, cb, *, hd: int,
     else:
         bias = torch.where(mask, 0.0, -1e30).to(torch.float32)
     if dropout > 0.0:
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (b,), dtype=torch.int32,
-                              generator=generator).to(x.device)
+        # a sharded step's rows take their slice of the global batch's
+        # seeds, so its keep-masks are the single process's
+        seeds = draw_share(generator, (b,), lambda s, g: torch.randint(
+            -2 ** 31, 2 ** 31, s, dtype=torch.int32, generator=g)).to(
+            x.device)
     else:
         seeds = torch.zeros((b,), dtype=torch.int32, device=x.device)
     operands = (qh.contiguous(), x.contiguous(), vt.contiguous(),

@@ -1,10 +1,84 @@
 """Shared plumbing of the port's CLIs: datasets in the reference layout and
-the side tables, as the JAX package's ``tools/common.py`` (:16-115)."""
+the side tables, as the JAX package's ``tools/common.py`` (:16-115), and
+the ``--data_parallel`` / ``--mesh`` launch."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import torch
+
+MESH_HELP = ("explicit device mesh 'D' (data parallel) or 'D,M' (2-D data "
+             "x model; tensor-parallel params over the model axis)")
+
+
+def add_mesh_args(parser, mesh_help: str = MESH_HELP):
+    """The JAX CLIs' ``--data_parallel`` and ``--mesh``."""
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="data parallel over every device: one rank "
+                             "per visible card (WORLD_SIZE ranks under "
+                             "torchrun, one on the CPU)")
+    parser.add_argument("--mesh", type=str, default=None, help=mesh_help)
+
+
+def mesh_shape(args, tensor_parallel: bool = True):
+    """(data ranks, model ranks) that ``--mesh`` / ``--data_parallel`` ask
+    for, None without them.  ``--data_parallel`` spans every device: the
+    ranks ``torchrun`` started, else the visible cards, else (on the CPU)
+    one.  Without ``tensor_parallel`` (a model JAX never splits) a
+    ``--mesh D,M`` runs its D x M ranks on the data axis alone."""
+    from ..parallel.sharding import mesh_from_spec
+    if args.mesh:
+        n_data, n_model = mesh_from_spec(args.mesh)
+        return (n_data, n_model) if tensor_parallel else \
+            (n_data * n_model, 1)
+    if not args.data_parallel:
+        return None
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"]), 1
+    if torch.device(args.device).type == "cuda":
+        return max(torch.cuda.device_count(), 1), 1
+    return 1, 1
+
+
+def check_divisible(what: str, batch: int, shape) -> None:
+    """JAX's assert: the batch divides over the mesh's data axis."""
+    if shape is not None and batch % shape[0]:
+        raise ValueError(f"{what} {batch} must be divisible by the mesh's "
+                         f"data axis ({shape[0]})")
+
+
+def launch(run, args, shape):
+    """``run(args, mesh)`` on the ranks of ``shape`` (``mesh_shape``), or
+    ``run(args, None)`` in this process without one; returns rank 0's
+    value.  See ``parallel.mesh.run_ranks``."""
+    from ..parallel.mesh import run_ranks
+    from ..utils.device import resolve_device
+    resolve_device(args.device)
+    if shape is None:
+        return run(args, None)
+    return run_ranks(run, args, shape[0], shape[1], args.device)
+
+
+def rank_logger(log_path: str, mesh):
+    """(logger, whether this rank writes): rank 0's (or the only
+    process's) file logger, a silent one on the other ranks."""
+    from ..utils.logger import create_logger, quiet_logger
+    if mesh is not None and not mesh.is_writer:
+        return quiet_logger(), False
+    return create_logger(log_path), True
+
+
+def rank_outputs(log_path: str, log_dir: str, mesh):
+    """(logger, metric writer): files of rank 0, silent on the others."""
+    from ..utils.logger import MetricWriter, NullWriter
+    logger, writes = rank_logger(log_path, mesh)
+    return logger, MetricWriter(log_dir) if writes else NullWriter()
+
+
+def row_shard(mesh):
+    """(data index, data ranks) of ``mesh``, None without one."""
+    return None if mesh is None else (mesh.data_index, mesh.n_data)
 
 
 def load_table(path, shape):
@@ -109,14 +183,16 @@ def skip_batches(gen, n: int, ring):
 
 
 def tracklet_epochs(dataset, spec, batch_size, ring, cache=None,
-                    logger=None, map_fn=None):
+                    logger=None, map_fn=None, shard=None):
     """``(epoch_stream, preput)`` of a classification trainer for
     ``train/loop.run_epochs``, as the JAX CLIs wire them: each epoch
     streams ``iter_shuffled(dataset, epoch)`` through ``bucketed_batches``
     into ``ring`` on a prefetch thread (``map_fn`` maps each item to its
     (proposal, GT) pair), or, once ``cache`` is complete, cached batch
     descriptors; ``preput`` ships a staged batch to the card (offering it to
-    the cache) or assembles a cached one there."""
+    the cache) or assembles a cached one there.  ``shard`` = (data index,
+    data ranks) stages only this rank's rows of every batch (the cache is
+    off under a mesh)."""
     from ..data.bucketing import bucketed_batches, iter_shuffled
     from ..data.device_cache import cached_or_host_epoch
     from ..data.prefetch import prefetch
@@ -126,7 +202,7 @@ def tracklet_epochs(dataset, spec, batch_size, ring, cache=None,
             cache, epoch, logger,
             lambda: bucketed_batches(
                 iter_shuffled(dataset, seed=epoch, map_fn=map_fn), spec,
-                batch_size, staging=ring), skip=skip)
+                batch_size, staging=ring, shard=shard), skip=skip)
         if skip:          # resume: the stream is deterministic per epoch
             gen = skip_batches(gen, skip, ring)
         return prefetch(gen)

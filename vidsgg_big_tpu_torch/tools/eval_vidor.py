@@ -29,6 +29,14 @@ position table; ``--feat_dtype int8`` stores the stage-A features as int8
 with a scale per video.  Batches are packed into reused pinned slots and
 copied to the card on a copy stream (``data/transfer.StagingRing``), stage
 A's on a prefetch thread.
+
+``--data_parallel`` (every card) and ``--mesh D[,M]`` shard both stages'
+batches over D data ranks, as the JAX CLI: stage A's BIG-C splits its MLPs,
+FFNs and attention heads over M model ranks, while ``--use_baseline
+--mesh`` runs every rank on the data axis (the JAX CLI's
+``tools/eval_vidor.py:102-107``) and stage B's grounding model is never
+split.  Each rank stages its rows, the outputs come back to every rank,
+and rank 0 scores and writes.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ import time
 import numpy as np
 import torch
 
-from ..data.bucketing import BucketSpec, bucketed_batches, pick_unbounded
+from ..data.bucketing import (BucketSpec, bucketed_batches, pick_unbounded,
+                              shard_range)
 from ..data.prefetch import prefetch
 from ..data.synthetic import clip_features, num_clips
 from ..data.synthetic_vidor import (  # noqa: F401 (the CLIs' recipe)
@@ -54,22 +63,23 @@ from ..models.base_c import BaseC, BaseCConfig
 from ..models.big_c import BigCConfig, load_bias_matrix
 from ..models.grounding import GroundingConfig, GroundingModel
 from ..models.transplant import strip_module_prefix
+from ..parallel.sharding import shard_params
 from ..train.grounding_data import prepare_grounding_queries
 from ..train.grounding_steps import build_grounding_infer_step
 from ..train.steps import build_basec_infer_step, build_infer_step
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from ..utils.logger import create_logger
-from .common import (first_feat_dim, load_side_tables, load_table,
-                     make_dataset, pipeline_summary)
+from .common import (MESH_HELP, add_mesh_args, check_divisible,
+                     first_feat_dim, launch, load_side_tables, load_table,
+                     make_dataset, mesh_shape, pipeline_summary, rank_logger,
+                     row_shard)
 from .eval_vidvrd import WEIGHT_SEED, build_model, load_state
 
 # stage A packs tracklets on this ladder (the JAX CLI's :71-72)
 STAGE_A_N_LADDER = (8, 16, 32, 64, 128, 192)
 STAGE_B_MIN_BATCH = 4
 # flags of the JAX CLI that this slice leaves out, with their ROADMAP item
-LEFT_OUT = {"mesh": "A9 (multi-GPU)",
-            "zeroshot": "A10 (zero-shot eval)",
+LEFT_OUT = {"zeroshot": "A10 (zero-shot eval)",
             "save_hit_infos": "A10 (hit infos)"}
 
 
@@ -112,10 +122,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def classify(args, logger, all_cfgs, records, feat_dim, device):
+def classify(args, logger, all_cfgs, records, feat_dim, device, mesh=None):
     """Stage A: BIG-C v7 (or Base-C) inference over ``records`` ((proposal,
     GT) pairs of ``feat_dim`` features) -> ({video: Triplets (numpy)},
-    light rows (proposal without features, GT), stats)."""
+    light rows (proposal without features, GT), stats).  Under ``mesh``
+    each rank runs its rows of every batch (BIG-C split over the model
+    ranks) and every rank gets every video's triplets."""
     mc = all_cfgs["model_config"]
     if args.compute_dtype:
         mc = dict(mc, compute_dtype=args.compute_dtype)
@@ -124,12 +136,17 @@ def classify(args, logger, all_cfgs, records, feat_dim, device):
         cfg = BaseCConfig.from_dict(mc)
         model = build_basec_model(cfg, mc, args.ckpt_path,
                                   tables_path=args.tables_path)
-        infer = build_basec_infer_step(model.to(device), topk=topk)
+        infer = build_basec_infer_step(model.to(device), topk=topk,
+                                       mesh=mesh)
     else:
         cfg = BigCConfig.from_dict(mc, variant="v7")
         model = build_model(cfg, mc, args.ckpt_path,
-                            tables_path=args.tables_path)
-        infer = build_infer_step(model.to(device), topk=topk)
+                            tables_path=args.tables_path).to(device)
+        if mesh is not None:
+            shard_params(model, mesh)
+            logger.info(f"stage A over {mesh}: {len(model.tp_plan)} "
+                        "tensor-parallel parameters")
+        infer = build_infer_step(model, topk=topk, mesh=mesh)
     if args.ckpt_path:
         logger.info(f"loaded stage-A checkpoint {args.ckpt_path}")
     spec = BucketSpec(feat_dim=feat_dim, n_ladder=STAGE_A_N_LADDER,
@@ -140,7 +157,7 @@ def classify(args, logger, all_cfgs, records, feat_dim, device):
     try:
         for _, brows, props, _ in prefetch(bucketed_batches(
                 records, spec, args.batch_size, with_gt=False,
-                staging=ring)):
+                staging=ring, shard=row_shard(mesh))):
             props = ring.ship(props)
             _sync(device)
             t0 = time.perf_counter()
@@ -216,11 +233,12 @@ class DatasetClips:
         return vf
 
 
-def ground(args, logger, results, rows, device, clips):
+def ground(args, logger, results, rows, device, clips, mesh=None):
     """Stage B: every valid triplet becomes a grounding query; videos are
     grouped on the (Q, T) grounding ladder (T from ``clips.length``) and
     run in batches of ``max(batch_size, 4)`` padded to one shape, their
-    clip features from ``clips.load``.  Returns (predicted relations,
+    clip features from ``clips.load``; under ``mesh`` each rank packs and
+    runs its rows of every batch.  Returns (predicted relations,
     stats)."""
     grd_cfgs = parse_config_py(args.grounding_cfg_path)
     gmc = grd_cfgs["model_config"]
@@ -235,7 +253,7 @@ def ground(args, logger, results, rows, device, clips):
         model.to(device), score_th=icfg.get("score_th", 0.9),
         tiou_th=icfg.get("tiou_th", 0.5),
         bins_th=args.bins_th or icfg.get("bins_th", 0.2),
-        nms_th=icfg.get("nms_th", 0.8))
+        nms_th=icfg.get("nms_th", 0.8), mesh=mesh)
     cvt = EvalFmtCvtor("vidor")
     predict_relations, groups = {}, {}
     for prop, _ in rows:
@@ -250,6 +268,7 @@ def ground(args, logger, results, rows, device, clips):
         groups.setdefault(key, []).append(work)
 
     b = max(args.batch_size, STAGE_B_MIN_BATCH)
+    lo, hi = shard_range(b, row_shard(mesh))
     batches, seconds = [], 0.0
     ring = StagingRing(device)
     for q_bucket, t_bucket in sorted(groups):
@@ -259,16 +278,17 @@ def ground(args, logger, results, rows, device, clips):
         for s in range(0, len(group), b):
             chunk = group[s:s + b]
             t0 = time.perf_counter()
+            n = hi - lo
             host = ring.acquire({
-                "feats": ((b, t_bucket, gcfg.dim_feat), torch.float32),
-                "clip_mask": ((b, t_bucket), torch.bool),
-                "clips": ((b,), torch.int64),
-                "qc": ((b, q_bucket, 3), torch.int64),
-                "temp": ((b, q_bucket, 2), torch.float32),
-                "qm": ((b, q_bucket), torch.bool)})
+                "feats": ((n, t_bucket, gcfg.dim_feat), torch.float32),
+                "clip_mask": ((n, t_bucket), torch.bool),
+                "clips": ((n,), torch.int64),
+                "qc": ((n, q_bucket, 3), torch.int64),
+                "temp": ((n, q_bucket, 2), torch.float32),
+                "qm": ((n, q_bucket), torch.bool)})
             for x in host.values():
                 x.zero_()
-            for i, (prop, quint, _, duras) in enumerate(chunk):
+            for i, (prop, quint, _, duras) in enumerate(chunk[lo:hi]):
                 vf = clips.load(prop, gcfg.dim_feat)
                 nc = min(vf.shape[0], t_bucket)
                 host["feats"][i, :nc] = torch.from_numpy(
@@ -331,22 +351,20 @@ def split_records(args, all_cfgs, logger):
             DatasetClips(dataset), dataset)
 
 
-def inference_then_eval(args) -> dict:
-    for flag, item in LEFT_OUT.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
-    device = resolve_device(args.device)
+def inference_then_eval(args, mesh=None):
+    """Both stages, then the metrics; ``mesh`` makes it one rank of a
+    sharded run, whose rank 0 returns the metrics (the others None)."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     strict_float32()
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger = create_logger(os.path.join(log_dir, "eval_vidor_torch.log"))
+    logger, writes = rank_logger(os.path.join(log_dir, "eval_vidor_torch.log"), mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     t0 = time.perf_counter()
     records, feat_dim, clips, dataset = split_records(args, all_cfgs, logger)
     results, rows, stats = classify(args, logger, all_cfgs, records,
-                                    feat_dim, device)
+                                    feat_dim, device, mesh)
     if dataset is not None:
         stats["dataset_seconds"] = dict(dataset.seconds)
     cvt = EvalFmtCvtor("vidor")
@@ -356,7 +374,7 @@ def inference_then_eval(args) -> dict:
                              "features of video_feature_dir in the dataset "
                              "config")
         predict_relations, b_stats = ground(args, logger, results, rows,
-                                            device, clips)
+                                            device, clips, mesh)
         stats.update(b_stats)
     else:
         predict_relations = {}
@@ -364,8 +382,11 @@ def inference_then_eval(args) -> dict:
             predict_relations.update(
                 cvt.to_eval_format_pr(prop, results[prop.video_name]))
     stats["wall_seconds"] = time.perf_counter() - t0
+    if not writes:
+        return None
     stats.update(n_videos=len(rows), n_relations=sum(
-        len(v) for v in predict_relations.values()), device=str(device))
+        len(v) for v in predict_relations.values()), device=str(device),
+        mesh=None if mesh is None else [mesh.n_data, mesh.n_model])
     if args.save_json_results:
         split = all_cfgs.get("test_dataset_config", {}).get("split", "val")
         p = os.path.join(experiment_dir,
@@ -462,16 +483,27 @@ def parse_args(argv=None):
                              "features at the config's dim_feat (+300 "
                              "classeme) and 2,400-frame videos with 46 "
                              "tracklets")
+    add_mesh_args(parser, MESH_HELP[:-1] + " — BIG-C stage A only)")
     for flag, item in LEFT_OUT.items():
-        kind = dict(type=str, default=None) if flag == "mesh" \
-            else dict(action="store_true")
-        parser.add_argument(f"--{flag}", **kind,
+        parser.add_argument(f"--{flag}", action="store_true",
                             help=f"not ported yet (ROADMAP {item}); raises")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    return inference_then_eval(parse_args(argv))
+    """Evaluate as the flags say; returns rank 0's metrics."""
+    args = parse_args(argv)
+    for flag, item in LEFT_OUT.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP {item})")
+    # JAX's quirk: the baseline under --mesh runs data parallel over every
+    # device (tools/eval_vidor.py:102-107)
+    shape = mesh_shape(args, tensor_parallel=not args.use_baseline)
+    check_divisible("batch_size", args.batch_size, shape)
+    check_divisible("the stage-B batch", max(args.batch_size,
+                                             STAGE_B_MIN_BATCH), shape)
+    return launch(inference_then_eval, args, shape)
 
 
 if __name__ == "__main__":

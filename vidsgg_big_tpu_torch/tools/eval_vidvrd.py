@@ -21,7 +21,11 @@ frozen name embedding (and v7 position table).  ``--feat_dtype int8`` is
 exp2's quantized serving path: features packed as int8 with a scale per
 video, the encoder's first visual layer an int8 product.  Batches are
 packed on a prefetch thread into reused pinned slots and copied to the card
-on a copy stream (``data/transfer.StagingRing``).
+on a copy stream (``data/transfer.StagingRing``).  ``--data_parallel``
+(every card) and ``--mesh D[,M]`` shard each batch over D data ranks and
+the model's MLPs, FFNs and attention heads over M (``parallel/``), as the
+JAX CLI; each rank stages its rows, the triplets come back to every rank
+and rank 0 scores and writes them.
 """
 from __future__ import annotations
 
@@ -41,13 +45,14 @@ from ..evaluation.convert import EvalFmtCvtor
 from ..evaluation.metrics import eval_relation_with_gt
 from ..models.big_c import BigC, BigCConfig, load_bias_matrix
 from ..models.transplant import strip_module_prefix
+from ..parallel.sharding import shard_params
 from ..train.steps import build_infer_step
 from ..train.train_state import checkpoint_steps
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from ..utils.logger import create_logger
-from .common import (first_feat_dim, load_side_tables, load_table,
-                     make_dataset, pipeline_summary)
+from .common import (add_mesh_args, check_divisible, first_feat_dim, launch,
+                     load_side_tables, load_table, make_dataset, mesh_shape,
+                     pipeline_summary, rank_logger, row_shard)
 
 # seed of the random weights when no checkpoint is given
 WEIGHT_SEED = 0
@@ -118,13 +123,15 @@ def split_records(args, cfg: BigCConfig, model_config: dict, split_cfg):
     return iter(dataset), feat_dim, {}, dataset
 
 
-def inference_then_eval(args) -> dict:
-    device = resolve_device(args.device)
+def inference_then_eval(args, mesh=None):
+    """Inference, then the metrics; ``mesh`` makes it one rank of a sharded
+    run, whose rank 0 returns the metrics (the others None)."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     strict_float32()
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger = create_logger(os.path.join(log_dir, "eval_torch.log"))
+    logger, writes = rank_logger(os.path.join(log_dir, "eval_torch.log"), mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     model_config = all_cfgs["model_config"]
     topk = args.topk or all_cfgs.get("inference_config", {}).get("topk", 10)
@@ -142,7 +149,12 @@ def inference_then_eval(args) -> dict:
                         tables_path=args.tables_path)
     if args.ckpt_path:
         logger.info(f"loaded checkpoint {args.ckpt_path}")
-    infer = build_infer_step(model.to(device), topk=topk)
+    model = model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+        logger.info(f"inference over {mesh}: {len(model.tp_plan)} "
+                    "tensor-parallel parameters")
+    infer = build_infer_step(model, topk=topk, mesh=mesh)
     convertor = EvalFmtCvtor("vidvrd")
     predict_relations = {}
     # the GT graphs are collected in the streaming pass (they are small)
@@ -154,7 +166,7 @@ def inference_then_eval(args) -> dict:
     try:
         for _, rows, props, _ in prefetch(bucketed_batches(
                 records, spec, args.batch_size, with_gt=False,
-                staging=ring)):
+                staging=ring, shard=row_shard(mesh))):
             props = ring.ship(props)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -176,6 +188,8 @@ def inference_then_eval(args) -> dict:
     logger.info(f"inference done on {n_videos} videos in {n_batches} "
                 f"batches, {infer_s:.3f} s in forward + triplets, "
                 f"{wall_s:.3f} s from the split's first read")
+    if not writes:
+        return None
 
     mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
         dataset_type="vidvrd", logger=logger,
@@ -200,7 +214,8 @@ def inference_then_eval(args) -> dict:
                 n_relations=sum(len(v) for v in predict_relations.values()),
                 infer_seconds=infer_s, wall_seconds=wall_s,
                 pipeline=pipeline_summary(ring, dataset),
-                device=str(device))
+                device=str(device),
+                mesh=None if mesh is None else [mesh.n_data, mesh.n_model])
 
 
 def parse_args(argv=None):
@@ -259,11 +274,16 @@ def parse_args(argv=None):
                         help="synthetic features at the config's dims (in "
                              "memory: bench.py's full-size recipe, packed "
                              "at N=50 tracklets x T=256 frames)")
+    add_mesh_args(parser)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    return inference_then_eval(parse_args(argv))
+    """Evaluate as the flags say; returns rank 0's metrics."""
+    args = parse_args(argv)
+    shape = mesh_shape(args)
+    check_divisible("batch_size", args.batch_size, shape)
+    return launch(inference_then_eval, args, shape)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,13 @@ batch are masked out of the loss, and a SIGTERM / SIGINT (or
 ``--from_checkpoint`` resumes exactly.  As in the JAX CLI, ``--tables_path``
 is read by the classification stage only and the cache serves the
 classification modes only.
+
+``--data_parallel`` (every card) and ``--mesh D[,M]`` shard every mode's
+batches over D data ranks, as the JAX CLI: the classification modes split
+their MLPs, FFNs and attention heads over M model ranks (BIG-C v7,
+Base-C); the grounding model is never split, so its ``--mesh D,M`` runs
+D x M ranks on the data axis.  The device cache is off under a mesh; rank
+0 writes the journal and the checkpoints (the same files under any mesh).
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ import numpy as np
 import torch
 
 from ..data.bucketing import (BucketSpec, iter_shuffled, pick_unbounded,
-                              stream_buckets)
+                              shard_range, stream_buckets)
 from ..data.device_cache import make_cache
 from ..data.prefetch import prefetch
 from ..data.synthetic_vidor import SyntheticGroundingSet, SyntheticVidORSet
@@ -64,6 +71,7 @@ from ..data.types import GraphBatch, graph_leaves, pack_gt
 from ..models.base_c import BaseCConfig
 from ..models.big_c import BigCConfig
 from ..models.grounding import GroundingConfig, GroundingModel
+from ..parallel.sharding import shard_params
 from ..train.grounding_steps import build_grounding_train_step
 from ..train.loop import install_stop_handler, run_epochs
 from ..train.steps import build_basec_train_step, build_train_step
@@ -71,14 +79,13 @@ from ..train.train_state import (TrainState, load_checkpoint,
                                  load_checkpoint_position)
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from ..utils.logger import MetricWriter, create_logger
-from .common import (first_feat_dim, has_table, load_tables, make_dataset,
-                     pipeline_summary, tracklet_epochs)
+from .common import (add_mesh_args, check_divisible, first_feat_dim,
+                     has_table, launch, load_tables, make_dataset,
+                     mesh_shape, pipeline_summary, rank_outputs, row_shard,
+                     tracklet_epochs)
 from .eval_vidor import build_basec_model
 from .eval_vidvrd import build_model
 
-# flags of the JAX CLI that this slice leaves out, with their ROADMAP item
-LEFT_OUT = {"mesh": "A9 (multi-GPU)", "data_parallel": "A9 (multi-GPU)"}
 # the GT trajectory ladder of the JAX CLI's make_batch
 G_LADDER = (32, 64, 128)
 # the classification modes' vIoU grid covers VidOR's video-length bound
@@ -89,14 +96,17 @@ EXTRA_METRICS = {"cls": ("cls_pos", "cls_neg", "adj", "grad_norm"),
 
 
 def make_batch(rows, t_bucket: int, n_real: int, dim_feat: int,
-               p_bucket: int, wire: torch.dtype, staging=None):
+               p_bucket: int, wire: torch.dtype, staging=None, shard=None):
     """rows: [(clip features, GT)] padded to the batch size by repeats of
     the last video, whose GT masks are zeroed so they add nothing to the
     loss.  Returns (feats (B, T, D) in ``wire``, clip_mask, n_clips,
     GraphBatch, video_len): host tensors, in a slot of ``staging`` (a
-    ``transfer.StagingRing``) where given."""
-    b = len(rows)
+    ``transfer.StagingRing``) where given.  ``shard`` = (data index, data
+    ranks) packs that rank's rows alone, at the whole batch's GT bucket."""
     gb = pick_unbounded(max(gt.num_trajs for _, gt in rows), G_LADDER)
+    lo, hi = shard_range(len(rows), shard)
+    rows = rows[lo:hi]
+    b = len(rows)
     leaves = {"feats": ((b, t_bucket, dim_feat), wire),
               "clip_mask": ((b, t_bucket), torch.bool),
               "n_clips": ((b,), torch.int64),
@@ -117,7 +127,7 @@ def make_batch(rows, t_bucket: int, n_real: int, dim_feat: int,
     for f in dataclasses.fields(GraphBatch):
         np.stack([getattr(g, f.name) for g in packed],
                  out=out["g_" + f.name].numpy())
-    real = torch.arange(b) < n_real
+    real = torch.arange(lo, hi) < n_real
     out["g_traj_mask"] &= real[:, None]
     out["g_pred_mask"] &= real[:, None]
     torch.lt(torch.arange(t_bucket)[None], out["n_clips"][:, None],
@@ -148,18 +158,18 @@ def _dataset(args, all_cfgs, logger, in_memory):
     return dataset
 
 
-def _setup(args, tag):
+def _setup(args, tag, mesh):
     """(device, experiment dir, logger, metric writer, all configs, model
     config with the --compute_dtype override, train_config), as the JAX
-    CLI's ``_setup``."""
-    device = resolve_device(args.device)
+    CLI's ``_setup``; under a mesh the rank's card, rank 0 writing."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     strict_float32()
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger = create_logger(os.path.join(log_dir,
-                                        f"train_{tag}_{args.save_tag}.log"))
-    writer = MetricWriter(log_dir)
+    logger, writer = rank_outputs(
+        os.path.join(log_dir, f"train_{tag}_{args.save_tag}.log"), log_dir,
+        mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     mc = all_cfgs["model_config"]
     if args.compute_dtype:
@@ -185,10 +195,13 @@ def _resume(args, logger, state, ckpt_dir, iters_per_epoch):
 
 def _summary(state, ckpt_dir, writer, device, batch_size, logger,
              pipeline, n_videos):
+    mesh = state.mesh
     summary = {"step": state.step, "ckpt_dir": ckpt_dir,
                "metrics": writer.path, "device": str(device),
                "batch_size": batch_size, "n_videos": n_videos,
-               "pipeline": pipeline}
+               "pipeline": pipeline,
+               "mesh": None if mesh is None else [mesh.n_data, mesh.n_model],
+               "grad_sync_bytes": state.sync_bytes}
     if device.type == "cuda":
         summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)
@@ -197,13 +210,14 @@ def _summary(state, ckpt_dir, writer, device, batch_size, logger,
     return summary
 
 
-def train_classification(args, baseline: bool) -> dict:
+def train_classification(args, baseline: bool, mesh=None) -> dict:
     """The BIG-C v7 classification stage (JAX ``train_cls_stage`` +
     ``_generic_train``) or, with ``baseline``, Base-C (``train_baseline``):
-    one loop, their own models, steps and checkpoint directories."""
+    one loop, their own models, steps and checkpoint directories; ``mesh``
+    makes it one rank of a sharded run."""
     tag = "base" if baseline else "cls"
     device, experiment_dir, logger, writer, all_cfgs, mc, train_config = \
-        _setup(args, tag)
+        _setup(args, tag, mesh)
     if baseline:
         cfg = BaseCConfig.from_dict(mc)
         model = build_basec_model(cfg, mc, seed=args.seed)
@@ -217,6 +231,10 @@ def train_classification(args, baseline: bool) -> dict:
     # random weights from --seed; the config's name and bias tables where
     # their files exist (zeros otherwise, as the JAX CLI's load_tables)
     model = model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+        logger.info(f"training over {mesh}: {len(model.tp_plan)} "
+                    "tensor-parallel parameters")
     dataset = _dataset(args, all_cfgs, logger, lambda: SyntheticVidORSet(
         args.synthetic, cfg.dim_feat, args.synthetic_model_dims))
 
@@ -235,7 +253,7 @@ def train_classification(args, baseline: bool) -> dict:
     milestones = [m * iters_per_epoch
                   for m in train_config["epoch_lr_milestones"]]
     state = TrainState(model, train_config["initial_lr"],
-                       train_config["lr_decay"], milestones)
+                       train_config["lr_decay"], milestones, mesh=mesh)
     wire = wire_dtype(args.feat_dtype, cfg.compute_dtype)
     # the default N ladder (tops at 192: VidOR allows max_proposal=180);
     # max_preds sits in the dataset configs, so p_bucket is 128 for exp4-6
@@ -249,10 +267,11 @@ def train_classification(args, baseline: bool) -> dict:
     # VidOR's train-split redirects are by content (empty or overlong
     # videos): such a video never surfaces, the cache stays incomplete and
     # is dropped after the first full epoch; every epoch stays on the host
-    cache = make_cache(args, dataset, batch_size)
+    cache = make_cache(args, dataset, batch_size, mesh=mesh)
     ring = StagingRing(device)
     epoch_stream, preput = tracklet_epochs(dataset, spec, batch_size, ring,
-                                           cache, logger, map_fn=row_of)
+                                           cache, logger, map_fn=row_of,
+                                           shard=row_shard(mesh))
     build = build_basec_train_step if baseline else build_train_step
     step_fn = build(model, state, t_abs=T_ABS)
     if device.type == "cuda":
@@ -273,9 +292,11 @@ def train_classification(args, baseline: bool) -> dict:
                     pipeline_summary(ring, dataset, cache), len(dataset))
 
 
-def train_grounding_stage(args) -> dict:
+def train_grounding_stage(args, mesh=None) -> dict:
+    """The grounding stage (JAX ``train_grounding_stage``); ``mesh`` makes
+    it one rank of a run sharded over the data axis alone."""
     device, experiment_dir, logger, writer, all_cfgs, mc, train_config = \
-        _setup(args, "grd")
+        _setup(args, "grd", mesh)
     cfg = GroundingConfig.from_dict(mc)
     dataset = _dataset(args, all_cfgs, logger, lambda: SyntheticGroundingSet(
         args.synthetic, cfg.dim_feat, args.synthetic_model_dims))
@@ -305,7 +326,7 @@ def train_grounding_stage(args) -> dict:
     milestones = [m * iters_per_epoch
                   for m in train_config["epoch_lr_milestones"]]
     state = TrainState(model, train_config["initial_lr"],
-                       train_config["lr_decay"], milestones)
+                       train_config["lr_decay"], milestones, mesh=mesh)
     p_bucket = mc.get("max_preds", 200)
     # JAX's grounding batches ship float32 for --feat_dtype int8 (its
     # make_batch knows bfloat16 and float32 only)
@@ -325,7 +346,7 @@ def train_grounding_stage(args) -> dict:
         for t, rows_, n_real in gen:
             t0 = time.perf_counter()
             batch = make_batch(rows_, t, n_real, cfg.dim_feat, p_bucket,
-                               wire, staging=ring)
+                               wire, staging=ring, shard=row_shard(mesh))
             ring.pack_seconds.append(time.perf_counter() - t0)
             yield batch
 
@@ -414,25 +435,25 @@ def parse_args(argv=None):
                              "bucket), 46 tracklets with RoI features at "
                              "the config's dim_feat + 300 classeme, 12 GT "
                              "trajectories, 16 predicates")
-    for flag, item in LEFT_OUT.items():
-        kind = dict(action="store_true") if flag == "data_parallel" \
-            else dict(default=None)
-        parser.add_argument(f"--{flag}", **kind,
-                            help=f"not ported yet (ROADMAP {item}); raises")
+    add_mesh_args(parser)
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
-    for flag, item in LEFT_OUT.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+def _rank(args, mesh):
     if args.train_baseline:
-        return train_classification(args, baseline=True)
+        return train_classification(args, baseline=True, mesh=mesh)
     if args.train_grounding:
-        return train_grounding_stage(args)
-    return train_classification(args, baseline=False)
+        return train_grounding_stage(args, mesh)
+    return train_classification(args, baseline=False, mesh=mesh)
+
+
+def main(argv=None) -> dict:
+    """Train the mode the flags select; returns rank 0's summary."""
+    args = parse_args(argv)
+    shape = mesh_shape(args, tensor_parallel=not args.train_grounding)
+    check_divisible("batch_size", args.batch_size or parse_config_py(
+        args.cfg_path)["train_config"]["batch_size"], shape)
+    return launch(_rank, args, shape)
 
 
 if __name__ == "__main__":

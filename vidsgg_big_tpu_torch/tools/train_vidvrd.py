@@ -30,6 +30,15 @@ SIGTERM / SIGINT (or ``--stop_after_batches``) stops at a step boundary
 with a checkpoint that ``--from_checkpoint`` resumes exactly.
 ``tools/eval_vidvrd --ckpt_path <output_dir>/checkpoints_<save_tag>``
 serves the result.
+
+``--data_parallel`` trains over every card (one rank each) and ``--mesh
+D[,M]`` over D data ranks, with the model's MLPs, FFNs and attention heads
+split over M ranks (``parallel/``), as the JAX CLI's flags: every rank
+walks the same batch order and stages its rows of each batch, the losses
+are global means, and rank 0 writes the journal and the checkpoints,
+which are the same files under any mesh.  Started plainly the CLI spawns
+one rank per card (the mesh must cover them); under ``torchrun`` it joins
+the ranks started there.
 """
 from __future__ import annotations
 
@@ -44,34 +53,33 @@ from ..data.device_cache import make_cache
 from ..data.synthetic_vidvrd import FULL_SIZE_BUCKETS, SyntheticVidVRDSet
 from ..data.transfer import StagingRing, wire_dtype
 from ..models.big_c import BigCConfig
+from ..parallel.sharding import shard_params
 from ..train.loop import install_stop_handler, run_epochs
 from ..train.steps import build_train_step
 from ..train.train_state import (TrainState, load_checkpoint,
                                  load_checkpoint_position)
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from ..utils.logger import MetricWriter, create_logger
-from .common import (first_feat_dim, make_dataset, pipeline_summary,
-                     tracklet_epochs)
+from .common import (add_mesh_args, check_divisible, first_feat_dim, launch,
+                     make_dataset, mesh_shape, pipeline_summary,
+                     rank_outputs, row_shard, tracklet_epochs)
 from .eval_vidvrd import build_model
 
-# flags of the JAX CLI that this slice leaves out, with their ROADMAP item
-LEFT_OUT = {"data_parallel": "A9 (multi-GPU)", "mesh": "A9 (multi-GPU)"}
 # the vIoU grid must cover the video-length bound (JAX CLI :133-136)
 T_ABS = 4096
 EXTRA_METRICS = ("cls_pos", "cls_neg", "adj", "grad_norm")
 
 
-def train(args):
-    """Returns (summary, TrainState)."""
-    device = resolve_device(args.device)
+def train(args, mesh=None):
+    """Returns (summary, TrainState); ``mesh`` makes it one rank of a
+    sharded run."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     strict_float32()
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger = create_logger(os.path.join(log_dir,
-                                        f"train_{args.save_tag}.log"))
-    writer = MetricWriter(log_dir)
+    logger, writer = rank_outputs(
+        os.path.join(log_dir, f"train_{args.save_tag}.log"), log_dir, mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     model_config = all_cfgs["model_config"]
     train_config = all_cfgs["train_config"]
@@ -106,6 +114,10 @@ def train(args):
     # table of --tables_path where given
     model = build_model(cfg, model_config, seed=args.seed,
                         tables_path=args.tables_path).to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+        logger.info(f"training over {mesh}: {len(model.tp_plan)} "
+                    "tensor-parallel parameters")
 
     batch_size = args.batch_size or train_config["batch_size"]
     total_epoch = args.epochs or train_config["total_epoch"]
@@ -116,7 +128,7 @@ def train(args):
     milestones = [m * iters_per_epoch
                   for m in train_config["epoch_lr_milestones"]]
     state = TrainState(model, train_config["initial_lr"],
-                       train_config["lr_decay"], milestones)
+                       train_config["lr_decay"], milestones, mesh=mesh)
     wire = wire_dtype(args.feat_dtype, cfg.compute_dtype)
     # int8 features are packed with a scale per video; BigC dequantizes
     # them once in train mode, so the int8 wire only cuts the H2D bytes
@@ -137,15 +149,16 @@ def train(args):
                     f"{start_epoch}" + (f", batch {start_batch}"
                                         if start_batch else "") + ")")
 
-    # the device record cache (off at --device_cache_gb 0 and for the
-    # in-memory records, which have no name list); the train split's
-    # by-name skips are redirected as the dataset redirects them
-    cache = make_cache(args, dataset, batch_size, skip_names=(
+    # the device record cache (off at --device_cache_gb 0, under a mesh
+    # and for the in-memory records, which have no name list); the train
+    # split's by-name skips are redirected as the dataset redirects them
+    cache = make_cache(args, dataset, batch_size, mesh=mesh, skip_names=(
         VIDVRD_OOM_VIDEOS if getattr(dataset, "split", "") == "train"
         else ()))
     ring = StagingRing(device)
     epoch_stream, preput = tracklet_epochs(dataset, spec, batch_size, ring,
-                                           cache, logger)
+                                           cache, logger,
+                                           shard=row_shard(mesh))
     step_fn = build_train_step(model, state, t_abs=T_ABS)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -165,7 +178,9 @@ def train(args):
     summary = {"step": state.step, "ckpt_dir": ckpt_dir,
                "metrics": writer.path, "device": str(device),
                "batch_size": batch_size, "n_videos": len(dataset),
-               "pipeline": pipeline_summary(ring, dataset, cache)}
+               "pipeline": pipeline_summary(ring, dataset, cache),
+               "mesh": None if mesh is None else [mesh.n_data, mesh.n_model],
+               "grad_sync_bytes": state.sync_bytes}
     if device.type == "cuda":
         summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)
@@ -233,25 +248,21 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; pass cpu to run "
                              "without a card)")
-    for flag, item in LEFT_OUT.items():
-        kind = dict(action="store_true") if flag == "data_parallel" \
-            else dict(default=None)
-        parser.add_argument(f"--{flag}", **kind,
-                            help=f"not ported yet (ROADMAP {item}); raises")
+    add_mesh_args(parser)
     return parser.parse_args(argv)
 
 
-def check_args(args):
-    for flag, item in LEFT_OUT.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+def _rank(args, mesh):
+    return train(args, mesh)[0]
 
 
 def main(argv=None) -> dict:
+    """Train as the flags say; returns rank 0's summary."""
     args = parse_args(argv)
-    check_args(args)
-    return train(args)[0]
+    shape = mesh_shape(args)
+    check_divisible("batch_size", args.batch_size or parse_config_py(
+        args.cfg_path)["train_config"]["batch_size"], shape)
+    return launch(_rank, args, shape)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import draw_share
 from ..ops.segments import pack_rows, unique_max
 
 
@@ -34,8 +35,11 @@ def _group_structure(keys, valid):
 
 
 def gumbel_noise(shape, generator=None, device=None):
-    """Standard Gumbel noise -log(-log U), U uniform on (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    """Standard Gumbel noise -log(-log U), U uniform on (0, 1); a
+    :class:`~..ops.attention.ShardedDraws` gives this rank's rows of the
+    global batch's draw."""
+    u = draw_share(generator, shape, lambda s, g: torch.rand(
+        s, generator=g, device=device))
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 

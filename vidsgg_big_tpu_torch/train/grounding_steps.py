@@ -3,7 +3,10 @@
 Port of the JAX package's ``train/grounding_steps.py``: the training loss
 (positive and negative query slots through one forward), the train step
 (loss, backward, clip, Adam) and the inference step (forward in eval mode,
-then the test-time decode over the batch axis).
+then the test-time decode over the batch axis).  Sharded over a mesh's data
+ranks (``parallel/``; the grounding model is never split over a model
+axis, as in the JAX CLI), a rank runs its rows with the single process's
+draws cut to them, and the loss divides by global counts.
 """
 from __future__ import annotations
 
@@ -11,12 +14,15 @@ import torch
 
 from ..models.grounding import (GroundingModel, grounding_decode,
                                 grounding_gt_labels, grounding_loss)
+from ..parallel.mesh import gather_rows
 from .grounding_data import prepare_grounding_gt
+from .steps import step_metrics
 from .train_state import TrainState
 
 
 def grounding_train_loss(model: GroundingModel, video_feats, clip_mask,
-                         n_clips, gts, video_len, generator=None, noise=None):
+                         n_clips, gts, video_len, generator=None, noise=None,
+                         mesh=None):
     """Full grounding loss of a batch: (total, {term: value}).
 
     video_feats (B, T, D); gts a batched ``GraphBatch`` of tensors;
@@ -25,7 +31,8 @@ def grounding_train_loss(model: GroundingModel, video_feats, clip_mask,
     forward runs the [positive ++ negative] query slots, as the reference's
     ``torch.cat`` (reference grd_model_v5.py:302) and the JAX package
     (grounding_steps.py:34-43); queries are row-independent, so the split
-    outputs equal two separate forwards.
+    outputs equal two separate forwards.  ``mesh``: the loss's counts are
+    summed over its data ranks.
     """
     cfg = model.cfg
     prep = prepare_grounding_gt(gts, video_len, cfg.num_pred_cats,
@@ -41,7 +48,8 @@ def grounding_train_loss(model: GroundingModel, video_feats, clip_mask,
     neg_out = (regrs[:, p:], conf[:, p:], cls[:, p:])
     labels = grounding_gt_labels(prep["target"], n_clips, t, cfg.num_bins)
     return grounding_loss(out, neg_out, labels, prep["group_rep"],
-                          prep["is_rep"], prep["query_mask"], clip_mask, cfg)
+                          prep["is_rep"], prep["query_mask"], clip_mask, cfg,
+                          mesh=mesh)
 
 
 def build_grounding_train_step(model: GroundingModel, state: TrainState):
@@ -50,39 +58,52 @@ def build_grounding_train_step(model: GroundingModel, state: TrainState):
     backward, global-norm clip and one Adam update of ``state`` (which owns
     ``model``).  The model is put in train mode; on the card the combined
     encoder's attention launches the composed forward and backward kernels
-    once each per step wherever its gate engages."""
+    once each per step wherever its gate engages.  Under ``state.mesh``
+    the batch is this rank's rows (``noise``, where given, too) and the
+    terms come back summed over the data ranks."""
+    mesh = state.mesh
     model.train()
 
     def step(video_feats, clip_mask, n_clips, gts, video_len, generator=None,
              noise=None):
+        draws = generator if mesh is None else mesh.draws(generator)
         total, terms = grounding_train_loss(
             model, video_feats, clip_mask, n_clips, gts, video_len,
-            generator=generator, noise=noise)
+            generator=draws, noise=noise, mesh=mesh)
         total.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in dict(terms, total=total).items()}
+        return step_metrics(dict(terms, total=total), None, mesh)
 
     return step
 
 
 def build_grounding_infer_step(model: GroundingModel, *, score_th, tiou_th,
-                               bins_th, nms_th):
+                               bins_th, nms_th, mesh=None):
     """Returns infer(video_feats (B,T,D), clip_mask, n_clips (B,),
     query_cats (B,Q,3), temporal (B,Q,2), query_mask) -> (pooled (B,Q,K+1,2),
     bins_probs (B,Q,K+1), bins_mask (B,Q,K+1)), tensors on the model's
     device.  The model is put in eval mode, so the combined encoder's
     attention runs the CUDA kernel on the card wherever its gate engages.
+    With ``mesh`` the operands are this rank's rows and the outputs of
+    every data rank's rows come back in order (the stage-B eval's data
+    axis).
     """
     model.eval()
 
+    # under a mesh the attention picks its lowering by the whole batch's
+    # rows, as the single process does (no draw in eval mode)
+    rows = None if mesh is None else mesh.draws(None)
+
     @torch.inference_mode()
-    def infer(video_feats, clip_mask, n_clips, query_cats, temporal,
-              query_mask):
+    def decode(video_feats, clip_mask, n_clips, query_cats, temporal,
+               query_mask):
         regrs, conf, cls = model(video_feats, clip_mask, query_cats,
-                                 temporal, query_mask)
+                                 temporal, query_mask, generator=rows)
         return grounding_decode(regrs, conf, cls, temporal, n_clips,
                                 clip_mask, query_mask, score_th=score_th,
                                 tiou_th=tiou_th, bins_th=bins_th,
                                 nms_th=nms_th)
 
-    return infer
+    if mesh is None:
+        return decode
+    return lambda *operands: gather_rows(decode(*operands), mesh)

@@ -21,6 +21,10 @@ Port of the JAX package's ``train/loop.py``:
   copy on a copy stream, ``data/transfer.StagingRing``) after step N is
   dispatched; each epoch's seconds and steps go to the journal as
   ``time/epoch_s`` and ``time/epoch_steps``.
+* **Sharded runs** (``state.mesh``): every rank walks the same batch order
+  and steps; the stop latch is agreed on at each step boundary (a MAX over
+  the ranks, on the host), so a signal on one rank stops all of them after
+  the same step; rank 0 alone writes the checkpoint (every rank gathers).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import agree_any
 from .train_state import TrainState, save_checkpoint
 
 JOURNAL_EVERY = 10      # steps between log lines
@@ -148,8 +153,9 @@ def run_epochs(state: TrainState, run_step, epoch_stream, *,
             nxt = pull()                    # pack + H2D N+1 while N runs
             flush_pending(losses)           # read step N-1 while N runs
             pending = (it, metrics, epoch)
-            if should_stop() or (stop_after_batches and
-                                 total_batches >= stop_after_batches):
+            if agree_any(should_stop() or (
+                    stop_after_batches and
+                    total_batches >= stop_after_batches), state.mesh):
                 stopped = True
                 break
         if stopped and hasattr(stream, "close"):

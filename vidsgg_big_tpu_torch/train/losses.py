@@ -16,6 +16,7 @@ import torch
 from ..data.types import GraphBatch, TrackletBatch
 from ..ops.boxes import viou_matrix_grid
 from ..ops.matching import hungarian
+from ..parallel.mesh import data_sum
 
 _EPS = 1e-7
 
@@ -95,7 +96,7 @@ def matching_cost(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
 
 def bigc_losses(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
                 query4gt, num_querys: int, neg_weight: float,
-                loss_coeff_cls: float, loss_coeff_adj: float):
+                loss_coeff_cls: float, loss_coeff_adj: float, mesh=None):
     """Classification (pos/neg CE) + weighted adjacency BCE.
 
     Args:
@@ -105,6 +106,9 @@ def bigc_losses(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
     background target for unmatched queries, positive/negative means taken
     over the whole batch; BCE only on matched (query, gt) adjacency rows with
     ``neg_weight`` on zero targets, mean over batch x roles x entities.
+    Under a ``mesh`` each count is summed over the data ranks (JAX's losses
+    are global means under GSPMD): a rank's loss is its sum over the global
+    count, and the ranks' losses add up to the global one.
     Returns (total, {"cls_pos", "cls_neg", "adj"}).
     """
     b, q, _ = pred_logits.shape
@@ -128,8 +132,8 @@ def bigc_losses(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
     video_valid = traj_mask.any(-1)                           # (B,)
     pos = tgt != 0
     neg = (~pos) & video_valid[:, None]
-    n_pos = torch.clamp(pos.sum(), min=1)
-    n_neg = torch.clamp(neg.sum(), min=1)
+    n_pos = torch.clamp(data_sum(pos.sum(), mesh), min=1)
+    n_neg = torch.clamp(data_sum(neg.sum(), mesh), min=1)
     cls_pos = (ce * pos).sum() / n_pos
     cls_neg = (ce * neg).sum() / n_neg
 
@@ -144,7 +148,7 @@ def bigc_losses(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
     sel = (matched[:, None, :, None] & traj_mask[:, None, None, :]).to(
         bce.dtype)
     # reference means over every (role, matched gt, valid entity) element
-    elem = torch.clamp(sel.expand_as(bce).sum(), min=1.0)
+    elem = torch.clamp(data_sum(sel.expand_as(bce).sum(), mesh), min=1.0)
     adj_loss = (bce * w * sel).sum() / elem
 
     loss_dict = {
@@ -157,7 +161,7 @@ def bigc_losses(pred_logits, att, gts: GraphBatch, aligned_adj, traj_mask,
 
 
 def bigc_train_loss(outputs, props: TrackletBatch, gts: GraphBatch, cfg,
-                    t_abs: int = 1024):
+                    t_abs: int = 1024, mesh=None):
     """Full training loss from model outputs (cfg: BigCConfig):
     (total, {"cls_pos", "cls_neg", "adj"}, (query4gt, cost)).
 
@@ -166,7 +170,8 @@ def bigc_train_loss(outputs, props: TrackletBatch, gts: GraphBatch, cfg,
     The matching cost goes to the host once (ops/matching.hungarian).  The
     third element, which JAX's counterpart does not return, is the
     matching: the (B, P) assignment and the (B, Q, P) cost it solved, both
-    without gradient."""
+    without gradient.  ``mesh``: the counts are global (:func:`bigc_losses`).
+    """
     aligned, _ = align_gt_adjacency(props, gts, cfg.positive_viou_th,
                                     t_abs=t_abs)
     cost = matching_cost(
@@ -176,5 +181,5 @@ def bigc_train_loss(outputs, props: TrackletBatch, gts: GraphBatch, cfg,
     total, terms = bigc_losses(
         outputs["pred_logits"], outputs["att"], gts, aligned,
         props.traj_mask, query4gt, cfg.num_querys, cfg.neg_weight,
-        cfg.loss_coeff_cls, cfg.loss_coeff_adj)
+        cfg.loss_coeff_cls, cfg.loss_coeff_adj, mesh=mesh)
     return total, terms, (query4gt, cost)

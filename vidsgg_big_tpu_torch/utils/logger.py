@@ -30,6 +30,29 @@ def create_logger(filename: str = "train.log", filemode: str = "a",
     return logger
 
 
+def quiet_logger() -> logging.Logger:
+    """A logger that writes nothing (the ranks other than 0 of a sharded
+    run, where rank 0 logs)."""
+    logger = logging.getLogger("vidsgg_big_tpu_torch.quiet")
+    logger.handlers = [logging.NullHandler()]
+    logger.propagate = False
+    return logger
+
+
+class NullWriter:
+    """A :class:`MetricWriter` that writes nothing (ranks other than 0)."""
+    path = None
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class MetricWriter:
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
         os.makedirs(log_dir, exist_ok=True)

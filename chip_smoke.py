@@ -58,9 +58,10 @@ Phases; any failure exits non-zero and prints no result line:
         videos at batch 8: an uninterrupted run, and a run stopped after a
         step as on SIGTERM and resumed from its checkpoint, whose losses
         must equal the uninterrupted run's bit for bit;
-     g. the checkpoint of f served through eval_vidvrd --ckpt_path (8
-        videos, one batch: six role-attention launches);
-     each in float32 and in bfloat16;
+     g. the bfloat16 checkpoint of f served through eval_vidvrd --ckpt_path
+        (8 videos, one batch: six role-attention launches; phase 3s serves
+        the float32 one);
+     c-f each in float32 and in bfloat16;
      h. exp2's int8 serving path through eval_vidvrd --feat_dtype int8
         (16 videos at batch 8, float32 compute: six role-attention
         launches a forward);
@@ -82,7 +83,7 @@ Phases; any failure exits non-zero and prints no result line:
      i-l each in float32 and in bfloat16;
      m. the on-disk route: splits written in the reference layout under
         build/chip_smoke/disk with the port's synthetic_raw (exp2 pku_i3d:
-        8 train + 8 test videos at bench.py's full-size recipe; VidOR: 8
+        8 train + 4 test videos at bench.py's full-size recipe; VidOR: 8
         train videos with their clip features + 4 val videos at the
         full-size recipe) and copies of the configs pointing at them, read
         by the entry points without --synthetic; train_vidvrd on exp2's
@@ -93,18 +94,24 @@ Phases; any failure exits non-zero and prints no result line:
      n. eval_vidvrd on exp2's test split, cold (parse) then warm (.npz
         cache): six role-attention launches a forward, videos/s beside
         3a's in-memory rate; the first batch staged and shipped to the
-        card equal to the CPU's numpy packing of the same files;
+        card equal to the CPU's numpy packing of the same files; the warm
+        run also scores the zero-shot setting against the train split and
+        saves its predictions and triplets (--zeroshot --save_json_results
+        --save_infer_result --save_tag smoke);
      o. train_vidor's cls mode (exp4) on the VidOR train split, batch 4:
         bfloat16 over 2 epochs, the default 4 GB device cache completes and
         the losses are bit-equal with and without it; float32 over 1 epoch,
         the cache goes over its budget and frees its records (memory
         allocated at the end within 128 MiB of the run without it);
      p. eval_vidor on the VidOR val split: stage A's role attention, stage
-        B's composed forward on the clip features read from disk;
+        B's composed forward on the clip features read from disk, with the
+        zero-shot setting, its hit infos and predictions saved
+        (--save_hit_infos --zeroshot --save_json_results --save_tag
+        smoke);
      q. train_vidor --train_grounding on the train split's clip features,
         bfloat16, one epoch: the composed train forward and backward;
      r. multi-GPU (run before m): at world size 1 (NCCL) train_vidvrd
-        --data_parallel and --mesh 1,1 (exp2 f32, 16 videos at batch 8),
+        --mesh 1,1 (exp2 f32, 16 videos at batch 8),
         train_vidor --train_grounding --data_parallel (bf16, batch 8),
         eval_vidvrd --mesh 1 and eval_vidor --data_parallel, each bit-equal
         to the same run without the flag (f, d, a, b), with the gradient
@@ -117,6 +124,20 @@ Phases; any failure exits non-zero and prints no result line:
         card at the CPU tests' tolerances (the train steps' gradients too,
         their max-pool picks and ReLU signs routed as the one process's
         and their own held to be ties), their launches counted;
+     s. the evaluation and data tools on n's and p's files, before the
+        splits are removed: eval_vidvrd --json_results_path re-scores n's
+        saved predictions to n's metrics with no kernel launch;
+        eval_fraction_recall on p's hit infos, eval_traj_mAP,
+        prepare_gts_for_eval, cvt_results on p's predictions and
+        dataloader_demo --device cuda on the VidOR val split, their counts
+        held and their values finite in [0, 1]; convert_checkpoint of f's
+        float32 checkpoint saved as a reference-named .pth (DataParallel
+        prefixes), then eval_vidvrd on the converted directory: the
+        predictions of serving the .pth, six role-attention launches a
+        forward; p's grounding weights as a .pth, converted and served by
+        eval_vidor from the directory: p's predictions, stage A's role
+        attention and stage B's composed forward; each tool's host
+        seconds;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one exp2
@@ -1123,14 +1144,17 @@ def drive_train_vidvrd(card):
 
 
 def serve_trained(card, ckpts):
-    """Phase 3g: each dtype's trained checkpoint served through
-    eval_vidvrd --ckpt_path at that dtype, 8 full-size videos in one batch.
+    """Phase 3g: the bfloat16-trained checkpoint served through
+    eval_vidvrd --ckpt_path in bfloat16, 8 full-size videos in one batch
+    (phase 3s serves the float32 one, as a reference .pth and converted).
     Returns {dtype: {kernel: launches}}."""
     from vidsgg_big_tpu_torch.tools import eval_vidvrd
     from vidsgg_big_tpu_torch.utils.config import parse_config_py
     n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
     per_run = {}
     for dtype, ckpt in ckpts.items():
+        if dtype == "float32":
+            continue
         reset_counts()
         res = eval_vidvrd.main([
             "--cfg_path", EXP2_CFG, "--ckpt_path", ckpt, "--synthetic",
@@ -1434,8 +1458,9 @@ def same_metrics(what, got, want):
 def drive_multi_gpu(card, exp2, vidor):
     """Phase 3r: the multi-GPU path.  At world size 1 (NCCL, this card)
     through the four entry points, each against the same run without the
-    flag earlier in this script, bit for bit: train_vidvrd --data_parallel
-    and --mesh 1,1 (exp2 f32, 16 videos at batch 8, against 3f),
+    flag earlier in this script, bit for bit: train_vidvrd --mesh 1,1
+    (exp2 f32, 16 videos at batch 8, against 3f; --data_parallel takes
+    the same one-rank path there and is run by the next two),
     train_vidor --train_grounding --data_parallel (bf16, 16 videos at batch
     8, against 3d), eval_vidvrd --mesh 1 (against 3a f32) and eval_vidor
     --data_parallel (against 3b f32), the gradient bytes each step reduces;
@@ -1462,15 +1487,13 @@ def drive_multi_gpu(card, exp2, vidor):
             "--epochs", "1", "--compute_dtype", "float32", "--device",
             "cuda"]
     ref = os.path.join(OUT_DIR, "train_vidvrd_float32", "full")
-    for flag in (["--data_parallel"], ["--mesh", "1,1"]):
-        out = os.path.join(root, "train_vidvrd_" + flag[-1].strip("-"))
-        summary = counted("float32", lambda: train_vidvrd.main(
-            base + flag + ["--output_dir", out]))
-        same_journal(f"train_vidvrd {flag}", out, ref)
-        log(f"train_vidvrd f32 {' '.join(flag)} (world size 1, NCCL): "
-            f"losses bit-equal to the run without it; mesh "
-            f"{summary['mesh']}, {summary['grad_sync_bytes']} gradient "
-            "bytes reduced a step")
+    out = os.path.join(root, "train_vidvrd_1,1")
+    summary = counted("float32", lambda: train_vidvrd.main(
+        base + ["--mesh", "1,1", "--output_dir", out]))
+    same_journal("train_vidvrd --mesh 1,1", out, ref)
+    log(f"train_vidvrd f32 --mesh 1,1 (world size 1, NCCL): losses "
+        f"bit-equal to the run without it; mesh {summary['mesh']}, "
+        f"{summary['grad_sync_bytes']} gradient bytes reduced a step")
     run = ENTRY_RUNS["bfloat16"]
     out = os.path.join(root, "train_grounding_data_parallel")
     summary = counted("bfloat16", lambda: train_vidor.main([
@@ -1531,8 +1554,9 @@ DISK_DIR = os.path.join(OUT_DIR, "disk")
 # the distractors (N=32 rung), so its float32 records are 0.69 GB at T=4096
 # and the 8 train videos go past the default 4 GB device cache in float32
 # (not in bfloat16).  exp2's 8 train videos make one batch an epoch (16
-# did until the multi-GPU phase needed the time)
-EXP2_DISK_TRAIN, EXP2_DISK_TEST = 8, 8
+# did until the multi-GPU phase needed the time); its 4 test videos (8 until
+# phase 3s needed the time) one padded batch
+EXP2_DISK_TRAIN, EXP2_DISK_TEST = 8, 4
 VIDOR_DISK_TRAIN, VIDOR_DISK_VAL = 8, 4
 # exp2 records on the JAX CLI's default ladder (N=64, T=512) hold 377 MB
 # each in float32; phase 3m gives the cache 8 GB
@@ -1579,8 +1603,10 @@ def write_disk_splits():
     root = os.path.join(DISK_DIR, "vidvrd")
     train = synthetic_raw.write_synthetic_vidvrd(root, EXP2_DISK_TRAIN,
                                                  "train", **vrd)
+    # another seed than the train split's, so that the test split holds
+    # triplets the train split never saw (phase 3s's zero-shot setting)
     test = synthetic_raw.write_synthetic_vidvrd(root, EXP2_DISK_TEST, "test",
-                                                **vrd)
+                                                seed=1, **vrd)
     t1 = time.perf_counter()
     vor = dict(dim_feat=parse_config_py(EXP4_CFG)["model_config"][
         "dim_feat"], wh=(640, 360), **synthetic_vidor.FULL_SIZE_RECIPE)
@@ -1755,12 +1781,16 @@ def drive_disk_eval_vidvrd(card, cfg, in_memory_rate):
     total = dict.fromkeys(read_counts(), 0)
     rates = {}
     for run in ("cold", "warm"):
+        # phase 3s: the warm run scores the zero-shot setting too and
+        # saves what the tools read
+        tools = (["--zeroshot", "--save_json_results", "--save_infer_result",
+                  "--save_tag", "smoke"] if run == "warm" else [])
         reset_counts()
         t0 = time.perf_counter()
         res = eval_vidvrd.main([
             "--cfg_path", cfg, "--batch_size", str(BATCH), "--device",
             "cuda", "--output_dir", OUT_DIR, "--metrics_json",
-            os.path.join(OUT_DIR, f"metrics_disk_{run}.json")])
+            os.path.join(OUT_DIR, f"metrics_disk_{run}.json")] + tools)
         wall = time.perf_counter() - t0
         counts = read_counts()
         rates[run] = res["n_videos"] / wall
@@ -1783,8 +1813,9 @@ def drive_disk_eval_vidvrd(card, cfg, in_memory_rate):
     log(f"exp2 eval_vidvrd videos/s, wall time of the entry point: from "
         f"disk cold {rates['cold']}, warm {rates['warm']}; in memory "
         f"(phase 3a, float32) {in_memory_rate}; {card}")
+    check_zero_shot_block("eval_vidvrd warm", res, "vidvrd", cfg)
     check_disk_batch(cfg)
-    return {"float32": total}
+    return {"float32": total}, res
 
 
 def drive_disk_train_vidor(card, cfg):
@@ -1860,7 +1891,10 @@ def drive_disk_eval_vidor(card, cfg):
         "--cfg_path", cfg, "--grounding_cfg_path", GRD_CFG, "--batch_size",
         str(VIDOR_BATCH), "--topk", str(VIDOR_TOPK), "--device", "cuda",
         "--output_dir", OUT_DIR, "--metrics_json",
-        os.path.join(OUT_DIR, "metrics_vidor_disk.json")])
+        os.path.join(OUT_DIR, "metrics_vidor_disk.json"),
+        # phase 3s's files
+        "--save_hit_infos", "--zeroshot", "--save_json_results",
+        "--save_tag", "smoke"])
     wall = time.perf_counter() - t0
     counts = read_counts()
     engaged = sum(len(composed_encoders(gcfg, b, q, t))
@@ -1877,6 +1911,7 @@ def drive_disk_eval_vidor(card, cfg):
     if engaged == 0 or counts["composed_attention"] != engaged:
         raise AssertionError(f"eval_vidor from disk: {counts} where the "
                              f"gate engages {engaged} encoders")
+    check_zero_shot_block("eval_vidor", res, "vidor", cfg)
     return {"float32": counts}
 
 
@@ -1905,6 +1940,213 @@ def drive_disk_train_grounding(card, cfg):
         raise AssertionError(f"grounding from disk: launches {counts} over "
                              f"{steps} steps")
     return {"bfloat16": counts}
+
+
+# ---- the evaluation and data tools (phase 3s) ------------------------------
+
+def unit_values(what, tree):
+    """Every number of a metrics tree (dicts and lists) is finite and in
+    [0, 1]; VOC-07 AP sums eleven elevenths, which may round 2e-16 above
+    1."""
+    values = tree.values() if isinstance(tree, dict) else tree
+    for v in values:
+        if isinstance(v, (dict, list)):
+            unit_values(what, v)
+        elif not (math.isfinite(v) and 0.0 <= v <= 1.0 + 1e-12):
+            raise AssertionError(f"{what}: {v} out of [0, 1] in {tree}")
+
+
+def check_zero_shot_block(what, res, kind, cfg):
+    """A run's zero-shot block is there, in [0, 1], over a non-empty set of
+    unseen triplets (the split's GT triplets less the train split's)."""
+    from vidsgg_big_tpu_torch.data.annotations import VidOR, VidVRD
+    from vidsgg_big_tpu_torch.evaluation.zero_shot import (
+        collect_train_triplets)
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    ann = parse_config_py(cfg)["test_dataset_config"]["ann_dir"]
+    split = "test" if kind == "vidvrd" else "validation"
+    test = (VidVRD if kind == "vidvrd" else VidOR)(ann, [split]).get_triplets(
+        split)
+    unseen = set(map(tuple, test)) - collect_train_triplets(kind, ann)
+    if "zero_shot" not in res or not unseen:
+        raise AssertionError(f"{what}: zero-shot block "
+                             f"{res.get('zero_shot')} over {len(unseen)} "
+                             "unseen triplets")
+    unit_values(f"{what} zero-shot", res["zero_shot"])
+    log(f"{what}: zero-shot over {len(unseen)} unseen triplets: "
+        f"{json.dumps(res['zero_shot'])} in {res['zero_shot_seconds']} s "
+        "on the host")
+
+
+def timed_tool(seconds, name, fn, serves=False):
+    """``fn()`` with its host seconds kept under ``name`` and its launches;
+    a tool that ``serves`` no model launches no kernel."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds[name] = time.perf_counter() - t0
+    counts = read_counts()
+    if not serves and any(counts.values()):
+        raise AssertionError(f"{name} launched kernels: {counts}")
+    return out, counts
+
+
+def drive_eval_tools(card, cfgs, vrd_warm, ckpt):
+    """Phase 3s: the evaluation and data tools on the files of 3n's warm
+    eval_vidvrd and 3p's eval_vidor, with the splits still on disk; 3f's
+    float32 checkpoint converted and served through eval_vidvrd, and 3p's
+    grounding weights converted and served through eval_vidor.  Returns
+    {path: {"float32": launches}} of the two converted checkpoints'
+    runs."""
+    import lzma
+    import zipfile
+    from vidsgg_big_tpu_torch.models.grounding import (GroundingConfig,
+                                                       composed_encoders)
+    from vidsgg_big_tpu_torch.tools import (
+        convert_checkpoint, cvt_results, dataloader_demo,
+        eval_fraction_recall, eval_traj_mAP, eval_vidor, eval_vidvrd,
+        prepare_gts_for_eval)
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    t_phase = time.perf_counter()
+    seconds = {}
+    # the saved predictions re-scored: the warm run's metrics, no kernel
+    res, _ = timed_tool(seconds, "eval_vidvrd --json_results_path",
+                        lambda: eval_vidvrd.main([
+                            "--cfg_path", cfgs["exp2"], "--json_results_path",
+                            os.path.join(OUT_DIR, "VidVRDtest_predict_"
+                                                  "relations_smoke.json"),
+                            "--zeroshot", "--output_dir", OUT_DIR,
+                            "--save_tag", "smoke_rescored"]))
+    keys = ("mAP", "recall", "precision", "zero_shot")
+    if {k: res[k] for k in keys} != {k: vrd_warm[k] for k in keys}:
+        raise AssertionError(f"re-scored {res} against the warm run's "
+                             f"{vrd_warm}")
+    log(f"eval_vidvrd --json_results_path: the warm run's metrics "
+        f"{json.dumps({k: res[k] for k in keys})}")
+    vidor_cfg = parse_config_py(cfgs["exp4"])["test_dataset_config"]
+    fr, _ = timed_tool(seconds, "eval_fraction_recall",
+                       lambda: eval_fraction_recall.main([
+                           "--cfg_path", cfgs["exp4"], "--hit_info_path",
+                           os.path.join(OUT_DIR, "hit_infos_smoke.pkl"),
+                           "--experiment_dir", OUT_DIR]))
+    if fr["n_videos"] != VIDOR_DISK_VAL:
+        raise AssertionError(f"fraction recall over {fr}")
+    unit_values("fraction recall", {k: fr[k] for k in ("video_level",
+                                                        "dataset_level")})
+    tm, _ = timed_tool(seconds, "eval_traj_mAP",
+                       lambda: eval_traj_mAP.main([
+                           "--cfg_path", cfgs["exp4"], "--dataset_type",
+                           "vidor", "--split", "test"]))
+    if tm["n_videos"] != VIDOR_DISK_VAL or not tm["ap_class"]:
+        raise AssertionError(f"trajectory mAP {tm}")
+    unit_values("trajectory mAP", [tm["mean_ap"]] + [
+        ap for _, ap in tm["ap_class"]])
+    gt_path = os.path.join(OUT_DIR, "VidORval_gts_smoke.json")
+    gts, _ = timed_tool(seconds, "prepare_gts_for_eval",
+                        lambda: prepare_gts_for_eval.main([
+                            "--dataset_type", "vidor", "--anno_rpath",
+                            vidor_cfg["ann_dir"], "--split", "validation",
+                            "--save_path", gt_path]))
+    if len(gts) != VIDOR_DISK_VAL or not all(gts.values()):
+        raise AssertionError(f"prepare_gts_for_eval: {len(gts)} videos")
+    pred_path = os.path.join(OUT_DIR, "VidORval_predict_relations_smoke.json")
+    sub = os.path.join(OUT_DIR, "submission")
+    cv, _ = timed_tool(seconds, "cvt_results", lambda: cvt_results.main([
+        "--results_json", pred_path, "--output_dir", sub]))
+    with open(pred_path) as f:
+        pred = json.load(f)
+    with zipfile.ZipFile(cv["zip_path"]) as z:
+        members = z.namelist()
+        first = json.loads(lzma.decompress(z.read(members[0])))
+    if cv["n_videos"] != VIDOR_DISK_VAL or len(members) != len(pred) or \
+            list(first["results"].values())[0] != pred[members[0][:-8]]:
+        raise AssertionError(f"cvt_results: {cv}, {members}")
+    dd, _ = timed_tool(seconds, "dataloader_demo",
+                       lambda: dataloader_demo.main([
+                           "--cfg_path", cfgs["exp4"], "--dataset_type",
+                           "vidor", "--split", "test", "--device",
+                           "cuda"]))
+    if dd["n_videos"] != VIDOR_DISK_VAL or dd["n_batches"] < 1 or \
+            len(dd["pipeline"]["h2d_ms"]) != dd["n_batches"]:
+        raise AssertionError(f"dataloader_demo: {dd}")
+    log(f"dataloader_demo --device cuda on the VidOR val split: "
+        f"{json.dumps(dd)}")
+    log(f"phase 3s tools: fraction recall {json.dumps(fr)}; trajectory mAP "
+        f"{tm['mean_ap']} over {len(tm['ap_class'])} classes (read "
+        f"{tm['read_seconds']} s, scored {tm['eval_seconds']} s); GT JSON of "
+        f"{len(gts)} videos; submission of {cv['n_videos']} videos from a "
+        f"{os.path.getsize(pred_path) / 1e6:.1f} MB prediction JSON")
+
+    # 3f's float32 checkpoint as a reference .pth, converted and served
+    n_deco = parse_config_py(EXP2_CFG)["model_config"]["n_deco_layers"]
+    pth = os.path.join(OUT_DIR, "bigc_reference.pth")
+    torch.save({f"module.{k}": v for k, v in
+                eval_vidvrd.load_state(ckpt).items()}, pth)
+    conv = os.path.join(OUT_DIR, "converted_bigc")
+    timed_tool(seconds, "convert_checkpoint", lambda: convert_checkpoint.main(
+        ["--torch_ckpt", pth, "--cfg_path", EXP2_CFG, "--model",
+         "bigc_vidvrd", "--out", conv]))
+    served = {}
+    for name, path in (("reference_pth", pth),
+                       ("eval_converted_checkpoint", conv)):
+        res, counts = timed_tool(seconds, name, lambda: eval_vidvrd.main([
+            "--cfg_path", EXP2_CFG, "--ckpt_path", path, "--synthetic",
+            str(BATCH), "--synthetic_model_dims", "--batch_size", str(BATCH),
+            "--device", "cuda", "--output_dir", OUT_DIR,
+            "--save_json_results", "--save_tag", name]), serves=True)
+        if counts["role_attention"] != n_deco * res["n_batches"]:
+            raise AssertionError(f"{name}: launches {counts} for "
+                                 f"{res['n_batches']} forwards")
+        with open(os.path.join(OUT_DIR, "VidVRDtest_predict_relations_"
+                                        f"{name}.json")) as f:
+            served[name] = json.load(f)
+    if served["reference_pth"] != served["eval_converted_checkpoint"] or \
+            not any(served["reference_pth"].values()):
+        raise AssertionError("the converted checkpoint's predictions differ "
+                             "from the .pth's")
+    log(f"convert_checkpoint: the converted directory serves the .pth's "
+        f"{sum(map(len, served['reference_pth'].values()))} relations; "
+        f"launches {counts}")
+    launches = {"eval_converted_checkpoint": {"float32": counts}}
+
+    # 3p's grounding weights as a reference .pth, converted, then 3p's
+    # run again with them from the converted directory: 3p's predictions
+    gcfg = GroundingConfig.from_dict(parse_config_py(GRD_CFG)["model_config"])
+    gpth = os.path.join(OUT_DIR, "grounding_reference.pth")
+    torch.save({f"module.{k}": v for k, v in
+                eval_vidor.build_grounding_model(gcfg).state_dict().items()},
+               gpth)
+    gconv = os.path.join(OUT_DIR, "converted_grounding")
+    timed_tool(seconds, "convert_checkpoint grounding",
+               lambda: convert_checkpoint.main([
+                   "--torch_ckpt", gpth, "--cfg_path", GRD_CFG, "--model",
+                   "grounding", "--out", gconv]))
+    res, counts = timed_tool(
+        seconds, "eval_converted_grounding_checkpoint",
+        lambda: eval_vidor.main([
+            "--cfg_path", cfgs["exp4"], "--grounding_cfg_path", GRD_CFG,
+            "--grounding_ckpt_path", gconv, "--batch_size", str(VIDOR_BATCH),
+            "--topk", str(VIDOR_TOPK), "--device", "cuda", "--output_dir",
+            OUT_DIR, "--save_json_results", "--save_tag",
+            "converted_grounding"]), serves=True)
+    engaged = sum(len(composed_encoders(gcfg, b, q, t))
+                  for q, t, b in res["stage_b_batches"])
+    with open(os.path.join(OUT_DIR, "VidORval_predict_relations_"
+                                    "converted_grounding.json")) as f:
+        if json.load(f) != pred:
+            raise AssertionError("the converted grounding checkpoint's "
+                                 "predictions differ from 3p's")
+    if engaged == 0 or counts["composed_attention"] != engaged or \
+            counts["role_attention"] == 0:
+        raise AssertionError(f"converted grounding: launches {counts}, the "
+                             f"gate engages {engaged} encoders")
+    log(f"convert_checkpoint grounding: eval_vidor from the converted "
+        f"directory gives 3p's {res['n_relations']} relations; launches "
+        f"{counts}")
+    launches["eval_converted_grounding_checkpoint"] = {"float32": counts}
+    seconds["phase"] = time.perf_counter() - t_phase
+    log(f"phase 3s host seconds: {json.dumps(seconds)}; {card}")
+    return launches
 
 
 def check_int8(card):
@@ -2492,6 +2734,7 @@ def main(argv=None):
                         help="root of another checkout whose role-attention "
                              "kernel phase 2 times in turns with this one")
     args = parser.parse_args(argv)
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2555,7 +2798,7 @@ def main(argv=None):
     disk_cfgs = write_disk_splits()
     by_path["disk_train_vidvrd"], _ = drive_disk_train_vidvrd(
         card, disk_cfgs["exp2"])
-    by_path["disk_eval_vidvrd"] = drive_disk_eval_vidvrd(
+    by_path["disk_eval_vidvrd"], vrd_warm = drive_disk_eval_vidvrd(
         card, disk_cfgs["exp2"],
         N_VIDEOS / exp2["float32"]["wall_seconds"])
     by_path["disk_train_vidor_cls"], _ = drive_disk_train_vidor(
@@ -2564,6 +2807,8 @@ def main(argv=None):
                                                        disk_cfgs["exp4"])
     by_path["disk_train_grounding"] = drive_disk_train_grounding(
         card, disk_cfgs["grounding"])
+    by_path.update(drive_eval_tools(card, disk_cfgs, vrd_warm,
+                                    ckpts["float32"]))
     for split in ("vidvrd", "vidor"):     # the written data; logs stay
         shutil.rmtree(os.path.join(DISK_DIR, split))
     log(f"the on-disk phases took {time.perf_counter() - t0:.1f} s")
@@ -2619,6 +2864,8 @@ def main(argv=None):
             f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB, matching on the "
             f"host {res['matching_host_ms']} ms a step; {card}")
 
+    log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s; "
+        f"{card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -283,15 +283,13 @@ def test_cli_int8_stage_a_matches_jax(tmp_path):
     _same_relations(port_pred, json.loads(json.dumps(jax_pred)))
 
 
-@pytest.mark.parametrize("flag", ["--mesh=2", "--zeroshot",
-                                  "--save_hit_infos"])
+@pytest.mark.parametrize("flag", ["--mesh=2"])
 def test_cli_left_out_flags_raise(flag):
-    """The flags left out raise naming their ROADMAP item; --mesh is ported
-    (A9) and raises where its data axis does not divide the batch of 1, as
-    the JAX CLI's assert."""
-    err, match = ((ValueError, "divisible") if flag.startswith("--mesh")
-                  else (NotImplementedError, "ROADMAP A"))
-    with pytest.raises(err, match=match):
+    """No flag of the JAX CLI is left out any more (--zeroshot and
+    --save_hit_infos are held in test_torch_eval_zero_shot.py); --mesh
+    raises where its data axis does not divide the batch of 1, as the JAX
+    CLI's assert."""
+    with pytest.raises(ValueError, match="divisible"):
         eval_vidor.main(["--cfg_path", CFG, "--synthetic", "1",
                          "--device", "cpu", flag])
 

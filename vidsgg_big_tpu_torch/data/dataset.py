@@ -174,12 +174,7 @@ class VidVRDDataset:
         else:
             raise ValueError(self.fmt)
 
-        with open(os.path.join(self.video_ann_dir,
-                               video_name + ".json")) as f:
-            anno = json.load(f)
-        gt = parse.parse_gt_annotation(
-            video_name, anno, vidvrd_CatName2Id, vidvrd_PredName2Id,
-            max_preds=self.max_preds, truncate=self.split == "train")
+        gt = self.get_gt(video_name)
         prop = parse.build_proposal_record(
             video_name, parsed, self.max_proposal,
             video_len=gt.video_len, video_wh=gt.video_wh)
@@ -187,6 +182,17 @@ class VidVRDDataset:
         _save_record(cache, prop, gt)
         _timed(self.seconds, "save", t0)
         return prop, gt
+
+    def get_gt(self, video_name):
+        """The GT record of one video, parsed from its annotation alone
+        (what ``get_data`` pairs with the proposals, without reading
+        them)."""
+        with open(os.path.join(self.video_ann_dir,
+                               video_name + ".json")) as f:
+            anno = json.load(f)
+        return parse.parse_gt_annotation(
+            video_name, anno, vidvrd_CatName2Id, vidvrd_PredName2Id,
+            max_preds=self.max_preds, truncate=self.split == "train")
 
     def __getitem__(self, idx):
         video_name = self.video_name_list[idx]

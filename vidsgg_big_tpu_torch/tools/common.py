@@ -121,6 +121,134 @@ def load_side_tables(tables_path, enti_emb=None):
     return enti_emb, pos
 
 
+def metrics_dict(out) -> dict:
+    """{mAP, recall@K, tagging P@K} of ``eval_relation_with_gt``'s
+    (mean_ap, rec_at_n, prec_at_n), with string keys as in JSON."""
+    mean_ap, rec_at_n, prec_at_n = out
+    return {"mAP": float(mean_ap),
+            "recall": {str(k): float(v) for k, v in rec_at_n.items()},
+            "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
+
+
+def write_metrics_json(path, out, zero_shot=None):
+    """Dump ``eval_relation_with_gt``'s (mean_ap, recall@K, tagging
+    precision@K) as JSON, the JAX CLIs' payload; ``zero_shot``: the same
+    tuple from ``evaluate_zero_shot``, written under a "zero_shot" key."""
+    import json
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = metrics_dict(out)
+    if zero_shot is not None:
+        payload["zero_shot"] = metrics_dict(zero_shot)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1)
+
+
+def save_pickle(path, obj, logger, what):
+    """Pickle ``obj`` at ``path`` and log it."""
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+    logger.info(f"{what} saved at {path}")
+
+
+def triplets_dict(trip) -> dict:
+    """One video's ``models.triplets.Triplets`` (numpy leaves) as
+    {field: np.ndarray}: the ``--save_infer_result`` pickles hold these,
+    since the JAX CLIs' flax ``Triplets`` cannot be unpickled without JAX
+    (the same values under the same field names)."""
+    import dataclasses
+    return {f.name: np.asarray(getattr(trip, f.name))
+            for f in dataclasses.fields(trip)}
+
+
+def maybe_zero_shot(args, logger, dataset_type, predict_relations,
+                    gt_relations, ds_cfg=None):
+    """``--zeroshot``: the relation metrics restricted to the triplets
+    unseen at train time (the JAX CLIs' ``_maybe_zero_shot``; reference
+    VidVRD-helper/evaluate.py:22-53), or None without the flag.  The train
+    triplets come from the train split's annotation JSONs under
+    ``--train_anno_rpath``, else the dataset config's ``ann_dir``
+    (``ds_cfg``).  Under ``--synthetic N --synthetic_root DIR`` a missing
+    train split is first written beside the test split
+    (``data/synthetic_raw``, seed 1, N videos); the in-memory ``--synthetic
+    N`` has no annotation tree and needs ``--train_anno_rpath``.
+    ``gt_relations`` None reads ``--gt_json``."""
+    if not args.zeroshot:
+        return None
+    import glob
+    import json
+    from ..data import synthetic_raw
+    from ..evaluation.zero_shot import (collect_train_triplets,
+                                        evaluate_zero_shot)
+    ann = args.train_anno_rpath or (ds_cfg or {}).get("ann_dir")
+    if not ann:
+        raise ValueError("--zeroshot needs --train_anno_rpath (or a "
+                         "dataset config with ann_dir)")
+    if args.synthetic and args.synthetic_root:
+        # the synthetic split on disk comes with what it needs, the train
+        # split of the zero-shot triplets included
+        if dataset_type == "vidvrd":
+            if not glob.glob(os.path.join(ann, "train", "*.json")):
+                synthetic_raw.write_synthetic_vidvrd(
+                    os.path.dirname(os.path.abspath(ann)),
+                    n_videos=int(args.synthetic), split="train", seed=1)
+        elif not glob.glob(os.path.join(ann, "training", "*", "*.json")):
+            synthetic_raw.write_synthetic_vidor(
+                os.path.dirname(os.path.dirname(os.path.abspath(ann))),
+                n_videos=int(args.synthetic), split="train", seed=1,
+                with_video_features=False)
+    train_triplets = collect_train_triplets(dataset_type, ann)
+    logger.info(f"zero-shot: {len(train_triplets)} train triplets "
+                f"collected from {ann}")
+    if gt_relations is None:
+        if not args.gt_json:
+            raise ValueError("--zeroshot without the split's GT needs "
+                             "--gt_json")
+        with open(args.gt_json) as f:
+            gt_relations = json.load(f)
+    return evaluate_zero_shot(
+        gt_relations, predict_relations, train_triplets,
+        use_old_zeroshot_eval=args.old_zeroshot_eval, logger=logger)
+
+
+def check_zero_shot(args) -> None:
+    """Refuse ``--zeroshot`` before any work where no train split can be
+    found: the in-memory ``--synthetic`` records have no annotation
+    tree."""
+    if args.zeroshot and args.synthetic and not args.synthetic_root and \
+            not args.train_anno_rpath:
+        raise ValueError(
+            "--zeroshot on the in-memory --synthetic records has no train "
+            "annotations: pass --train_anno_rpath DIR, or --synthetic_root "
+            "DIR to write the splits in the reference layout")
+
+
+def add_eval_args(parser, train_split: str):
+    """The flags both eval CLIs share with the JAX CLIs: ``--save_tag``,
+    ``--save_infer_result`` and the zero-shot setting."""
+    parser.add_argument("--save_tag", type=str, default="torch",
+                        help="tag of the log (eval_{tag}.log) and of the "
+                             "result files; the JAX CLIs' names with this "
+                             "tag (default torch, apart from JAX's '')")
+    parser.add_argument("--save_infer_result", action="store_true",
+                        help="pickle each video's stage-A triplets as "
+                             "{video: {field: np.ndarray}} under the field "
+                             "names of models/triplets.Triplets (the JAX "
+                             "CLIs pickle flax Triplets, which need JAX to "
+                             "load; the values are the same)")
+    parser.add_argument("--zeroshot", action="store_true",
+                        help="also evaluate in the zero-shot setting "
+                             f"(triplets unseen in the {train_split} split;"
+                             " reference VidVRD-helper/evaluate.py:22-53)")
+    parser.add_argument("--old_zeroshot_eval", action="store_true",
+                        help="keep non-zero-shot predictions in zero-shot "
+                             "videos (the reference's 'old' protocol)")
+    parser.add_argument("--train_anno_rpath", type=str, default=None,
+                        help=f"annotation root holding the {train_split} "
+                             "split (default: from the dataset config; the "
+                             "in-memory --synthetic records need it)")
+
+
 def make_dataset(dataset_config, dataset_type, synthetic=0,
                  synthetic_root=None, fmt=None, dim_feat=None, dim_i3d=None):
     """The split of ``dataset_config`` in the reference layout, and the

@@ -37,6 +37,15 @@ FFNs and attention heads over M model ranks, while ``--use_baseline
 ``tools/eval_vidor.py:102-107``) and stage B's grounding model is never
 split.  Each rank stages its rows, the outputs come back to every rank,
 and rank 0 scores and writes.
+
+As the JAX CLI, ``--zeroshot`` adds the metrics over the triplets unseen in
+the training split (``--train_anno_rpath``, default the split's own
+annotation root) to the log, the result and ``--metrics_json``'s
+"zero_shot" block; ``--save_hit_infos`` pickles the relation eval's
+{video: (detection scores, GT-to-detection ids)} as ``hit_infos_{tag}.pkl``
+(what ``tools/eval_fraction_recall`` reads); ``--save_infer_result``
+pickles stage A's triplets; ``--save_tag`` names the log
+``eval_{tag}.log`` and every result file.
 """
 from __future__ import annotations
 
@@ -62,25 +71,23 @@ from ..evaluation.metrics import eval_relation_with_gt
 from ..models.base_c import BaseC, BaseCConfig
 from ..models.big_c import BigCConfig, load_bias_matrix
 from ..models.grounding import GroundingConfig, GroundingModel
-from ..models.transplant import strip_module_prefix
 from ..parallel.sharding import shard_params
 from ..train.grounding_data import prepare_grounding_queries
 from ..train.grounding_steps import build_grounding_infer_step
 from ..train.steps import build_basec_infer_step, build_infer_step
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from .common import (MESH_HELP, add_mesh_args, check_divisible,
-                     first_feat_dim, launch, load_side_tables, load_table,
-                     make_dataset, mesh_shape, pipeline_summary, rank_logger,
-                     row_shard)
+from .common import (MESH_HELP, add_eval_args, add_mesh_args,
+                     check_divisible, check_zero_shot, first_feat_dim, launch,
+                     load_side_tables, load_table, make_dataset,
+                     maybe_zero_shot, mesh_shape, metrics_dict,
+                     pipeline_summary, rank_logger, row_shard, save_pickle,
+                     triplets_dict, write_metrics_json)
 from .eval_vidvrd import WEIGHT_SEED, build_model, load_state
 
 # stage A packs tracklets on this ladder (the JAX CLI's :71-72)
 STAGE_A_N_LADDER = (8, 16, 32, 64, 128, 192)
 STAGE_B_MIN_BATCH = 4
-# flags of the JAX CLI that this slice leaves out, with their ROADMAP item
-LEFT_OUT = {"zeroshot": "A10 (zero-shot eval)",
-            "save_hit_infos": "A10 (hit infos)"}
 
 
 def _synthetic_seed(video_name: str) -> int:
@@ -88,13 +95,13 @@ def _synthetic_seed(video_name: str) -> int:
 
 
 def build_grounding_model(cfg: GroundingConfig, ckpt_path=None):
-    """GroundingModel on the CPU: random weights from ``WEIGHT_SEED``, or a
-    reference-named checkpoint (``module.`` prefixes stripped)."""
+    """GroundingModel on the CPU: random weights from ``WEIGHT_SEED``, or
+    the weights of a checkpoint file or directory
+    (``eval_vidvrd.load_state``)."""
     model = GroundingModel(
         cfg, generator=torch.Generator().manual_seed(WEIGHT_SEED))
     if ckpt_path:
-        sd = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(strip_module_prefix(sd), strict=True)
+        model.load_state_dict(load_state(ckpt_path), strict=True)
     return model
 
 
@@ -359,7 +366,8 @@ def inference_then_eval(args, mesh=None):
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger, writes = rank_logger(os.path.join(log_dir, "eval_vidor_torch.log"), mesh)
+    logger, writes = rank_logger(
+        os.path.join(log_dir, f"eval_{args.save_tag}.log"), mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     t0 = time.perf_counter()
     records, feat_dim, clips, dataset = split_records(args, all_cfgs, logger)
@@ -387,13 +395,19 @@ def inference_then_eval(args, mesh=None):
     stats.update(n_videos=len(rows), n_relations=sum(
         len(v) for v in predict_relations.values()), device=str(device),
         mesh=None if mesh is None else [mesh.n_data, mesh.n_model])
+    if args.save_infer_result:
+        save_pickle(os.path.join(
+            experiment_dir, f"VidORval_infer_results_{args.save_tag}.pkl"),
+            {k: triplets_dict(v) for k, v in results.items()}, logger,
+            "infer results")
     if args.save_json_results:
         split = all_cfgs.get("test_dataset_config", {}).get("split", "val")
-        p = os.path.join(experiment_dir,
-                         f"VidOR{split}_predict_relations_torch.json")
+        p = os.path.join(experiment_dir, f"VidOR{split}_predict_relations_"
+                                         f"{args.save_tag}.json")
         with open(p, "w") as f:
             json.dump(predict_relations, f)
-        logger.info(f"predict_relations saved at {p}")
+        logger.info(f"predict_relations saved at {p} (package it with "
+                    "tools/cvt_results)")
     if all(gt is None for _, gt in rows) and not args.gt_json:
         logger.info("the split has no ground truth; no metrics")
         return stats
@@ -403,18 +417,25 @@ def inference_then_eval(args, mesh=None):
         for _, gt in rows:
             gt_relations.update(cvt.to_eval_format_gt(gt))
 
-    mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
+    *out, hit_infos = eval_relation_with_gt(
         dataset_type="vidor", logger=logger,
         prediction_results=predict_relations, gt_relations=gt_relations,
-        gt_relations_path=args.gt_json)
-    metrics = {"mAP": float(mean_ap),
-               "recall": {str(k): float(v) for k, v in rec_at_n.items()},
-               "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
+        gt_relations_path=args.gt_json, return_hit_infos=True)
+    metrics = metrics_dict(out)
+    if args.save_hit_infos:
+        save_pickle(os.path.join(experiment_dir,
+                                 f"hit_infos_{args.save_tag}.pkl"),
+                    hit_infos, logger, "hit infos")
+    t1 = time.perf_counter()
+    zs_cfg = (None if dataset is None or dataset.video_ann_dir is None else
+              {"ann_dir": os.path.dirname(dataset.video_ann_dir)})
+    zs = maybe_zero_shot(args, logger, "vidor", predict_relations,
+                         gt_relations, zs_cfg)
+    if zs is not None:
+        metrics.update(zero_shot=metrics_dict(zs),
+                       zero_shot_seconds=time.perf_counter() - t1)
     if args.metrics_json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.metrics_json)),
-                    exist_ok=True)
-        with open(args.metrics_json, "w") as f:
-            json.dump(metrics, f, indent=1)
+        write_metrics_json(args.metrics_json, out, zero_shot=zs)
         logger.info(f"metrics json saved at {args.metrics_json}")
     return dict(metrics, **stats)
 
@@ -439,7 +460,10 @@ def parse_args(argv=None):
                              "checkpoint carries its frozen pos_embedding "
                              "table, so no --tables_path is needed")
     parser.add_argument("--grounding_ckpt_path", type=str, default=None,
-                        help=ckpt_help)
+                        help=ckpt_help + ", or a train_vidor "
+                             "--train_grounding checkpoint directory (its "
+                             "newest ckpt_*.pt), such as convert_checkpoint "
+                             "writes")
     parser.add_argument("--output_dir", type=str, default=None,
                         help="log and result directory (default: the "
                              "config's directory)")
@@ -483,20 +507,19 @@ def parse_args(argv=None):
                              "features at the config's dim_feat (+300 "
                              "classeme) and 2,400-frame videos with 46 "
                              "tracklets")
+    parser.add_argument("--save_hit_infos", action="store_true",
+                        help="pickle the relation eval's {video: (detection "
+                             "scores, GT-to-detection ids)} as "
+                             "hit_infos_{tag}.pkl, for eval_fraction_recall")
+    add_eval_args(parser, "training")
     add_mesh_args(parser, MESH_HELP[:-1] + " — BIG-C stage A only)")
-    for flag, item in LEFT_OUT.items():
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"not ported yet (ROADMAP {item}); raises")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     """Evaluate as the flags say; returns rank 0's metrics."""
     args = parse_args(argv)
-    for flag, item in LEFT_OUT.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+    check_zero_shot(args)
     # JAX's quirk: the baseline under --mesh runs data parallel over every
     # device (tools/eval_vidor.py:102-107)
     shape = mesh_shape(args, tensor_parallel=not args.use_baseline)

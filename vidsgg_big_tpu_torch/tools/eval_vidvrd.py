@@ -26,6 +26,15 @@ on a copy stream (``data/transfer.StagingRing``).  ``--data_parallel``
 the model's MLPs, FFNs and attention heads over M (``parallel/``), as the
 JAX CLI; each rank stages its rows, the triplets come back to every rank
 and rank 0 scores and writes them.
+
+As the JAX CLI, ``--zeroshot`` adds the metrics over the triplets unseen in
+the train split (``--train_anno_rpath``, default the split's own annotation
+root; ``--old_zeroshot_eval`` keeps every prediction of a zero-shot video)
+to the log, the result and ``--metrics_json``'s "zero_shot" block;
+``--json_results_path`` re-scores a saved prediction JSON against
+``--gt_json`` or the split's GT graphs, with no model and no device;
+``--save_infer_result`` pickles the triplets; ``--save_tag`` names the log
+``eval_{tag}.log`` and the results ``VidVRDtest_*_{tag}``.
 """
 from __future__ import annotations
 
@@ -50,9 +59,12 @@ from ..train.steps import build_infer_step
 from ..train.train_state import checkpoint_steps
 from ..utils.config import parse_config_py
 from ..utils.device import resolve_device, strict_float32
-from .common import (add_mesh_args, check_divisible, first_feat_dim, launch,
-                     load_side_tables, load_table, make_dataset, mesh_shape,
-                     pipeline_summary, rank_logger, row_shard)
+from .common import (add_eval_args, add_mesh_args, check_divisible,
+                     check_zero_shot, first_feat_dim, launch,
+                     load_side_tables, load_table, make_dataset,
+                     maybe_zero_shot, mesh_shape, metrics_dict,
+                     pipeline_summary, rank_logger, row_shard, save_pickle,
+                     triplets_dict, write_metrics_json)
 
 # seed of the random weights when no checkpoint is given
 WEIGHT_SEED = 0
@@ -123,6 +135,81 @@ def split_records(args, cfg: BigCConfig, model_config: dict, split_cfg):
     return iter(dataset), feat_dim, {}, dataset
 
 
+def zero_shot_config(dataset):
+    """The dataset config keys ``common.maybe_zero_shot`` reads: the
+    split's annotation root, None for the in-memory records."""
+    if dataset is None:
+        return None
+    return {"ann_dir": os.path.dirname(dataset.video_ann_dir)}
+
+
+def split_gt_relations(args, cfg: BigCConfig, model_config: dict,
+                       split_cfg):
+    """({video: challenge-format GT relations}, dataset or None) of the
+    split that ``inference_then_eval`` would read, from its GT graphs alone
+    (the annotations of a split on disk, no tracklet features)."""
+    convertor = EvalFmtCvtor("vidvrd")
+    gt_relations = {}
+    if args.synthetic and not args.synthetic_root:
+        records, _, _, dataset = split_records(args, cfg, model_config,
+                                               split_cfg)
+        gts = (gt for _, gt in records)
+    else:
+        fmt = args.fmt or ("pku_i3d" if args.use_pku else None)
+        dataset, _ = make_dataset(split_cfg, "vidvrd",
+                                  synthetic=args.synthetic,
+                                  synthetic_root=args.synthetic_root,
+                                  fmt=fmt)
+        gts = (dataset.get_gt(n) for n in dataset.video_name_list)
+    for gt in gts:
+        gt_relations.update(convertor.to_eval_format_gt(gt))
+    return gt_relations, dataset
+
+
+def rescore(args) -> dict:
+    """``--json_results_path``: the metrics of a saved prediction JSON,
+    against ``--gt_json`` or the split's GT graphs; no model is built and no
+    device touched (the JAX CLI's :87-97)."""
+    experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
+    log_dir = os.path.join(experiment_dir, "logfile")
+    os.makedirs(log_dir, exist_ok=True)
+    logger, _ = rank_logger(os.path.join(log_dir,
+                                         f"eval_{args.save_tag}.log"), None)
+    t0 = time.perf_counter()
+    logger.info(f"re-scoring saved predictions {args.json_results_path}")
+    with open(args.json_results_path) as f:
+        predict_relations = json.load(f)
+    gt_relations, dataset = None, None
+    if not args.gt_json:
+        all_cfgs = parse_config_py(args.cfg_path)
+        model_config = all_cfgs["model_config"]
+        gt_relations, dataset = split_gt_relations(
+            args, BigCConfig.from_dict(model_config, variant="v10"),
+            model_config, all_cfgs.get("test_dataset_config", {}))
+        # the inference run's order (the metrics average over videos in
+        # the GT's order, and a float sum depends on it)
+        gt_relations = dict(
+            [(v, gt_relations[v]) for v in predict_relations
+             if v in gt_relations] +
+            [(v, r) for v, r in gt_relations.items()
+             if v not in predict_relations])
+    out = eval_relation_with_gt(
+        dataset_type="vidvrd", logger=logger,
+        prediction_results=predict_relations, gt_relations=gt_relations,
+        gt_relations_path=args.gt_json)
+    zs = maybe_zero_shot(args, logger, "vidvrd", predict_relations,
+                         gt_relations, zero_shot_config(dataset))
+    if args.metrics_json:
+        write_metrics_json(args.metrics_json, out, zero_shot=zs)
+        logger.info(f"metrics json saved at {args.metrics_json}")
+    res = dict(metrics_dict(out), n_videos=len(predict_relations),
+               n_relations=sum(len(v) for v in predict_relations.values()),
+               wall_seconds=time.perf_counter() - t0)
+    if zs is not None:
+        res["zero_shot"] = metrics_dict(zs)
+    return res
+
+
 def inference_then_eval(args, mesh=None):
     """Inference, then the metrics; ``mesh`` makes it one rank of a sharded
     run, whose rank 0 returns the metrics (the others None)."""
@@ -131,7 +218,8 @@ def inference_then_eval(args, mesh=None):
     experiment_dir = args.output_dir or os.path.dirname(args.cfg_path)
     log_dir = os.path.join(experiment_dir, "logfile")
     os.makedirs(log_dir, exist_ok=True)
-    logger, writes = rank_logger(os.path.join(log_dir, "eval_torch.log"), mesh)
+    logger, writes = rank_logger(
+        os.path.join(log_dir, f"eval_{args.save_tag}.log"), mesh)
     all_cfgs = parse_config_py(args.cfg_path)
     model_config = all_cfgs["model_config"]
     topk = args.topk or all_cfgs.get("inference_config", {}).get("topk", 10)
@@ -156,7 +244,7 @@ def inference_then_eval(args, mesh=None):
                     "tensor-parallel parameters")
     infer = build_infer_step(model, topk=topk, mesh=mesh)
     convertor = EvalFmtCvtor("vidvrd")
-    predict_relations = {}
+    predict_relations, infer_results = {}, {}
     # the GT graphs are collected in the streaming pass (they are small)
     gt_relations = {} if not args.gt_json else None
     n_videos = n_batches = 0
@@ -177,8 +265,11 @@ def inference_then_eval(args, mesh=None):
             # batch remainders repeat the last video; the dict update
             # dedups them
             for i, (prop, gt) in enumerate(rows):
+                one = trip.video(i)
                 predict_relations.update(convertor.to_eval_format_pr(
-                    prop, trip.video(i), use_pku=args.use_pku))
+                    prop, one, use_pku=args.use_pku))
+                if args.save_infer_result:
+                    infer_results[prop.video_name] = triplets_dict(one)
                 if gt_relations is not None and gt is not None:
                     gt_relations.update(convertor.to_eval_format_gt(gt))
                 n_videos += 1
@@ -191,22 +282,27 @@ def inference_then_eval(args, mesh=None):
     if not writes:
         return None
 
-    mean_ap, rec_at_n, prec_at_n = eval_relation_with_gt(
+    if args.save_infer_result:
+        save_pickle(os.path.join(
+            experiment_dir, f"VidVRDtest_infer_result_{args.save_tag}.pkl"),
+            infer_results, logger, "infer_result")
+    out = eval_relation_with_gt(
         dataset_type="vidvrd", logger=logger,
         prediction_results=predict_relations, gt_relations=gt_relations,
         gt_relations_path=args.gt_json)
-    metrics = {"mAP": float(mean_ap),
-               "recall": {str(k): float(v) for k, v in rec_at_n.items()},
-               "precision": {str(k): float(v) for k, v in prec_at_n.items()}}
+    metrics = metrics_dict(out)
+    t1 = time.perf_counter()
+    zs = maybe_zero_shot(args, logger, "vidvrd", predict_relations,
+                         gt_relations, zero_shot_config(dataset))
+    if zs is not None:
+        metrics.update(zero_shot=metrics_dict(zs),
+                       zero_shot_seconds=time.perf_counter() - t1)
     if args.metrics_json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.metrics_json)),
-                    exist_ok=True)
-        with open(args.metrics_json, "w") as f:
-            json.dump(metrics, f, indent=1)
+        write_metrics_json(args.metrics_json, out, zero_shot=zs)
         logger.info(f"metrics json saved at {args.metrics_json}")
     if args.save_json_results:
-        p = os.path.join(experiment_dir,
-                         "VidVRDtest_predict_relations_torch.json")
+        p = os.path.join(experiment_dir, "VidVRDtest_predict_relations_"
+                                         f"{args.save_tag}.json")
         with open(p, "w") as f:
             json.dump(predict_relations, f)
         logger.info(f"predict_relations saved at {p}")
@@ -259,6 +355,10 @@ def parse_args(argv=None):
     parser.add_argument("--gt_json", type=str, default=None,
                         help="challenge-format GT file (default: the GT of "
                              "the split's annotations)")
+    parser.add_argument("--json_results_path", type=str, default=None,
+                        help="re-score this saved prediction JSON against "
+                             "--gt_json or the split's GT, with no model "
+                             "and no device")
     parser.add_argument("--tables_path", type=str, default=None,
                         help="tables.npz of the frozen name embedding "
                              "(enti_name_emb) and position table")
@@ -274,6 +374,7 @@ def parse_args(argv=None):
                         help="synthetic features at the config's dims (in "
                              "memory: bench.py's full-size recipe, packed "
                              "at N=50 tracklets x T=256 frames)")
+    add_eval_args(parser, "train")
     add_mesh_args(parser)
     return parser.parse_args(argv)
 
@@ -281,6 +382,9 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Evaluate as the flags say; returns rank 0's metrics."""
     args = parse_args(argv)
+    check_zero_shot(args)
+    if args.json_results_path:
+        return rescore(args)
     shape = mesh_shape(args)
     check_divisible("batch_size", args.batch_size, shape)
     return launch(inference_then_eval, args, shape)

@@ -15,12 +15,13 @@ Phases; any failure exits non-zero and prints no result line:
      included, and on the decoder layer's views; timed on the device alone
      (a CUDA graph of 20 calls, tools/role_attn_turns.py) at exp2 B=8 N=50,
      stage A B=4 N=64 and B=4 N=192 beside the wrapper's wall time a call,
-     and with ``--parent CHECKOUT`` against that checkout's kernel in turns;
-     its three instances' registers, spills and TF32 HMMA; composed
-     attention: the inference forward at T in {128,
-     512, 1024} x R in {4, 64, 1024}, the train forward (dropout 0 and
-     0.1) and the backward at T in {128, 512} x R in {4, 64, 1024} and
-     (R=64, T=1024), float32 and bfloat16, masked keys and a fully masked
+     and with ``--parent CHECKOUT`` against that checkout's kernel (and
+     its wrapper's host ms a call) in turns; its three instances'
+     registers, spills and TF32 HMMA; composed attention: the inference
+     forward at T in {128, 512} x R in {4, 64, 1024} and (R in {4, 64},
+     T=1024), the train forward (dropout 0 and 0.1) and the backward at T
+     in {128, 512} x R in {4, 64, 1024} and (R=64, T=1024), float32 and
+     bfloat16, masked keys and a fully masked
      row; the dropout keep-mask read out of the kernel exactly and its
      realized rate; the backward called twice on the same inputs gives the
      same bits; timed at R=1024, T=512 beside PyTorch's SDPA (forward;
@@ -83,7 +84,7 @@ Phases; any failure exits non-zero and prints no result line:
      i-l each in float32 and in bfloat16;
      m. the on-disk route: splits written in the reference layout under
         build/chip_smoke/disk with the port's synthetic_raw (exp2 pku_i3d:
-        8 train + 4 test videos at bench.py's full-size recipe; VidOR: 8
+        8 train + 4 test videos at bench.py's full-size recipe; VidOR: 4
         train videos with their clip features + 4 val videos at the
         full-size recipe) and copies of the configs pointing at them, read
         by the entry points without --synthetic; train_vidvrd on exp2's
@@ -101,7 +102,7 @@ Phases; any failure exits non-zero and prints no result line:
      o. train_vidor's cls mode (exp4) on the VidOR train split, batch 4:
         bfloat16 over 2 epochs, the default 4 GB device cache completes and
         the losses are bit-equal with and without it; float32 over 1 epoch,
-        the cache goes over its budget and frees its records (memory
+        a 1 GB cache goes over its budget and frees its records (memory
         allocated at the end within 128 MiB of the run without it);
      p. eval_vidor on the VidOR val split: stage A's role attention, stage
         B's composed forward on the clip features read from disk, with the
@@ -138,6 +139,23 @@ Phases; any failure exits non-zero and prints no result line:
         eval_vidor from the directory: p's predictions, stage A's role
         attention and stage B's composed forward; each tool's host
         seconds;
+     t. the segment baseline at the reference's widths (11,070 features,
+        35 / 132 classes, k 20 / 200): the synthetic store written under
+        build/chip_smoke/segments, tools/segment_baseline --train --detect
+        on the card (SEG_MAX_ITER iterations), its detect on the CPU from
+        the same weights file (equal relations, scores within 1e-5, equal
+        metrics); the store's GB and write seconds, ms a train iteration,
+        predict_segment_pairs' device ms at the largest pair bucket, the
+        association's host seconds and the metrics; no kernel launch;
+     u. export and serving: tools/export_model --device cuda of exp2
+        (bigc_vidvrd, B=8, N=50, T=256) in float32 and bfloat16 and of
+        grounding_weights (float32) at stage B's geometry (B=4, Q=256,
+        T=512); each artifact reloaded through utils/serving.load_exported
+        and run on a's batch and phase 4's stage-B batch: equal to the
+        live infer step (integer leaves exactly, floats within 1e-6), the
+        role-attention (6) and composed-forward launches counted while it
+        runs; export seconds, artifact MB, videos/s of the artifact beside
+        the live step's; visualisation has no device path and is not run;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one exp2
@@ -252,8 +270,14 @@ RELU_TIE_RTOL = 1e-5
 INT8_AGREE_FLOOR = 0.9
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, with the seconds since the script started
+    (where each phase's time goes)."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f} s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, iters=100, warmup=10):
@@ -390,14 +414,17 @@ def check_role_attention(parent=None):
         shapes[name] = {
             "b": b, "n": n, "device_ms": min(times["kernel"]),
             "plain_device_ms": min(times["plain"]),
-            "call_ms": turns.wall_ms(lambda: role_attention(*args,
-                                                            DIM_ENTI)),
+            "call_ms_turns": [
+                turns.wall_ms(lambda: role_attention(*args, DIM_ENTI))
+                for _ in range(3)],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "parent_device_ms": None}
+        shapes[name]["call_ms"] = min(shapes[name]["call_ms_turns"])
         log(f"role_attention {name} (B={b}, N={n}) on the device alone "
             f"(CUDA graph of {turns.CALLS} calls, ms a call, both turns): "
             f"kernel {times['kernel']}, plain {times['plain']}; wrapper "
-            f"wall {shapes[name]['call_ms']} ms a call; bound {bound_ms} "
+            f"wall {shapes[name]['call_ms_turns']} ms a call (three "
+            f"readings of 100 calls); bound {bound_ms} "
             f"ms ({bound_by})")
     if parent is not None:
         with tempfile.TemporaryDirectory() as tmp:
@@ -409,6 +436,15 @@ def check_role_attention(parent=None):
             log(f"role_attention {name} in turns A B B A with {parent}: "
                 f"parent {r[parent]} ms, this {r['this']} ms, max |this - "
                 f"parent| {r['max_abs_diff'][parent]}")
+        # the wrappers' host ms a call, each checkout's in fresh processes
+        wrapper = turns.wrapper_turns([parent])
+        for name in shapes:
+            shapes[name]["parent_call_ms"] = min(wrapper[parent][name])
+            shapes[name]["call_ms_beside_parent"] = min(
+                wrapper["this"][name])
+            log(f"role_attention wrapper {name}, host ms a call in turns A "
+                f"B B A with {parent}: parent {wrapper[parent][name]}, this "
+                f"{wrapper['this'][name]}")
     exp2 = shapes[turns.SHAPES[0][0]]
     return {"name": "role_attention", "route": "cuda",
             "source": "vidsgg_big_tpu_torch/csrc/role_attn.cu",
@@ -418,6 +454,7 @@ def check_role_attention(parent=None):
             "bound_ms": exp2["bound_ms"], "bound_by": exp2["bound_by"],
             "library_ms": None, "device_ms": exp2["device_ms"],
             "call_ms": exp2["call_ms"],
+            "parent_call_ms": exp2.get("parent_call_ms"),
             "parent_device_ms": exp2["parent_device_ms"], "shapes": shapes}
 
 
@@ -536,21 +573,25 @@ def check_composed_attention():
     max_err = {}
     note = lambda key, err: max_err.__setitem__(key, max(max_err.get(
         key, 0.0), err))
+    # the forward's shapes are the backward's: R=1024 up to T=512 (stage B's
+    # combined encoder), T=1024 at R up to 64 (R=1024 at T=1024, which no
+    # main path reaches, took 20 s a dtype in the plain version)
+    shapes = ((4, 128), (64, 128), (1024, 128), (4, 512), (64, 512),
+              (1024, 512), (4, 1024), (64, 1024))
     for dtype in (torch.float32, torch.bfloat16):
-        for t in (128, 512, 1024):
-            for r in (4, 64, 1024):
-                args = composed_inputs(r, t, dtype, seed=r + t)
-                out = composed_attention(*args, scale)
-                torch.cuda.synchronize()
-                want = composed_attention_plain(*args, scale)
-                torch.testing.assert_close(out, want, **COMPOSED_TOL[dtype])
-                if not torch.isfinite(out).all():
-                    raise AssertionError("non-finite composed attention")
-                err = (out.float() - want.float()).abs().max().item()
-                note(("fwd", dtype), err)
-                log(f"composed_attention {dtype} R={r} T={t}: max |kernel "
-                    f"- plain| = {err}")
-                del args, out, want
+        for r, t in shapes:
+            args = composed_inputs(r, t, dtype, seed=r + t)
+            out = composed_attention(*args, scale)
+            torch.cuda.synchronize()
+            want = composed_attention_plain(*args, scale)
+            torch.testing.assert_close(out, want, **COMPOSED_TOL[dtype])
+            if not torch.isfinite(out).all():
+                raise AssertionError("non-finite composed attention")
+            err = (out.float() - want.float()).abs().max().item()
+            note(("fwd", dtype), err)
+            log(f"composed_attention {dtype} R={r} T={t}: max |kernel "
+                f"- plain| = {err}")
+            del args, out, want
         rate = check_dropout_mask(dtype)
         for r, t in ((4, 128), (64, 128), (1024, 128), (4, 512), (64, 512),
                      (1024, 512), (64, 1024)):
@@ -1551,13 +1592,15 @@ DISK_DIR = os.path.join(OUT_DIR, "disk")
 # full-size record recipe (46 tracklets of 480-frame videos), VidOR at the
 # in-memory phases' full-size recipe (2,400 frames, 46 tracklets, 299
 # clips).  VidOR's score_th 0.4 keeps the 12 GT tracklets and about 40% of
-# the distractors (N=32 rung), so its float32 records are 0.69 GB at T=4096
-# and the 8 train videos go past the default 4 GB device cache in float32
-# (not in bfloat16).  exp2's 8 train videos make one batch an epoch (16
-# did until the multi-GPU phase needed the time); its 4 test videos (8 until
-# phase 3s needed the time) one padded batch
+# the distractors (N=32 rung), so its float32 records are 0.35-0.69 GB;
+# the 4 train videos (8 until phases 3t-3u needed the time) fit the default
+# 4 GB device cache in bfloat16 and go past VIDOR_F32_CACHE_GB in float32.
+# exp2's 8 train videos make one batch an epoch (16 did until the
+# multi-GPU phase needed the time); its 4 test videos (8 until phase 3s
+# needed the time) one padded batch
 EXP2_DISK_TRAIN, EXP2_DISK_TEST = 8, 4
-VIDOR_DISK_TRAIN, VIDOR_DISK_VAL = 8, 4
+VIDOR_DISK_TRAIN, VIDOR_DISK_VAL = 4, 4
+VIDOR_F32_CACHE_GB = 1.0
 # exp2 records on the JAX CLI's default ladder (N=64, T=512) hold 377 MB
 # each in float32; phase 3m gives the cache 8 GB
 EXP2_DISK_CACHE_GB = 8.0
@@ -1822,16 +1865,18 @@ def drive_disk_train_vidor(card, cfg):
     """Phase 3o: train_vidor's cls mode (exp4) on the VidOR train split
     from disk, batch 4: bfloat16 over 2 epochs with the default 4 GB device
     cache (which completes: epoch 1 runs from it) and without, the losses
-    bit-equal; float32 over 1 epoch with the default cache, which goes over
-    its budget and frees what it captured (the memory allocated at the end
-    within FREED_SLACK of the run without a cache) and without.  Returns
+    bit-equal; float32 over 1 epoch with a VIDOR_F32_CACHE_GB cache, which
+    goes over its budget and frees what it captured (the memory allocated
+    at the end within FREED_SLACK of the run without a cache) and without.
+    Returns
     ({dtype: launches}, readings)."""
     from vidsgg_big_tpu_torch.tools import train_vidor
     base = ["--cfg_path", cfg, "--batch_size", str(CLS_BATCH), "--device",
             "cuda"]
     runs = [("bfloat16", "cache_on", 2, []),
             ("bfloat16", "cache_off", 2, ["--device_cache_gb", "0"]),
-            ("float32", "cache_on", 1, []),
+            ("float32", "cache_on", 1,
+             ["--device_cache_gb", str(VIDOR_F32_CACHE_GB)]),
             ("float32", "cache_off", 1, ["--device_cache_gb", "0"])]
     reset_counts()
     losses, readings = {}, {}
@@ -1860,7 +1905,8 @@ def drive_disk_train_vidor(card, cfg):
     cache = readings["float32_cache_on"]["device_cache"]
     end = {k: readings[f"float32_{k}"]["end_allocated_gib"] * 2 ** 30
            for k in ("cache_on", "cache_off")}
-    log(f"train_vidor from disk f32 at the default 4 GB: cache {cache}; "
+    log(f"train_vidor from disk f32 at {VIDOR_F32_CACHE_GB} GB: cache "
+        f"{cache}; "
         f"memory allocated at the end {end['cache_on'] / 2 ** 30:.3f} GiB "
         f"with the cache, {end['cache_off'] / 2 ** 30:.3f} GiB without")
     if not cache["over_budget"] or cache["videos"] or cache["bytes"] or \
@@ -2585,6 +2631,363 @@ def check_terms_and_grads(cpu_terms, gpu_terms, cpu_grads, gpu_grads):
     return worst
 
 
+# ---- the segment baseline, export and serving (phases 3t, 3u) -------------
+
+# phase 3t: the segment baseline at the reference's widths (the defaults of
+# SegmentBaselineConfig: 11,070 features, 35 object and 132 predicate
+# classes, pair top-k 20, segment top-k 200) on the synthetic writer's
+# default 6 train + 3 test videos (about 60 segments of 4-7 proposals,
+# 0.17 GB): the CLI end to end and the card against the CPU, a smoke run
+# at toy scale.  SEG_MAX_ITER train iterations: the reference's 200 a
+# quarter
+SEG_MAX_ITER = 50
+# ...then the detect path at a reference segment's scale: up to
+# max_traj_num_in_clip = 100 trajectory proposals, so 100 x 99 ordered
+# pairs, padded to the CLI's 16,384-pair bucket, on seeded random features;
+# SEG_REF_VIDEOS videos of SEG_REF_FRAMES frames (30 segments each) for the
+# association
+SEG_REF_TRAJS = 100
+SEG_REF_VIDEOS, SEG_REF_FRAMES = 4, 465
+SEG_DIR = os.path.join(OUT_DIR, "segments")
+# card vs CPU detect on one weights file: the linear layer's float32 sums
+# run in another order
+SEG_SCORE_TOL = 1e-5
+
+
+def relation_key(r):
+    return json.dumps([r["triplet"], r["duration"], r["sub_traj"],
+                       r["obj_traj"]])
+
+
+def same_relations(got, want, tol):
+    """Equal videos, each with the same relations (triplets, durations and
+    trajectories equal; scores within ``tol``), compared in the order of
+    :func:`relation_key`: predictions whose scores lie within one float32
+    rounding of each other may take the association's score sort in either
+    order on two devices.  Returns the largest score difference."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"videos {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for vid in want:
+        g = sorted(got[vid], key=relation_key)
+        w = sorted(want[vid], key=relation_key)
+        if [relation_key(r) for r in g] != [relation_key(r) for r in w]:
+            raise AssertionError(f"{vid}: the relations differ")
+        for a, b in zip(g, w):
+            worst = max(worst, abs(a["score"] - b["score"]))
+    if worst > tol:
+        raise AssertionError(f"relation scores differ by {worst} > {tol}")
+    return worst
+
+
+def drive_segment_baseline(card):
+    """Phase 3t: the store written at the reference's widths, the CLI's
+    --train --detect on the card, its detect on the CPU from the same
+    weights file (equal relations and metrics), predict_segment_pairs
+    timed at the store's largest pair bucket (smoke readings at 4-7
+    proposals a segment); the train step alone; the detect path at a
+    reference segment's scale (:func:`segment_reference_scale`).  Returns
+    ({"float32": launches}, the readings)."""
+    from vidsgg_big_tpu_torch.data.segment_store import (
+        SegmentStore, write_synthetic_segments)
+    from vidsgg_big_tpu_torch.models.segment_baseline import (
+        WEIGHTS_FILE, SegmentBaseline, SegmentBaselineConfig,
+        feature_preprocess, load_weights, predict_segment_pairs)
+    from vidsgg_big_tpu_torch.tools import segment_baseline
+    t_phase = time.perf_counter()
+    shutil.rmtree(SEG_DIR, ignore_errors=True)
+    root = os.path.join(SEG_DIR, "store")
+    t0 = time.perf_counter()
+    write_synthetic_segments(root, cfg=SegmentBaselineConfig())
+    write_s = time.perf_counter() - t0
+    store = SegmentStore(root)
+    cfg = store.cfg
+    n_segs = {s: len(store.segments(s)) for s in store.splits()}
+    log(f"segment store at the reference's widths ({cfg}): {n_segs} "
+        f"segments, {dir_gb(root)} GB written in {write_s:.2f} s")
+    out_dir = {d: os.path.join(SEG_DIR, d) for d in ("cuda", "cpu")}
+    reset_counts()
+    gpu = segment_baseline.main([
+        "--data_root", root, "--train", "--detect", "--device", "cuda",
+        "--max_iter", str(SEG_MAX_ITER), "--output_dir", out_dir["cuda"]])
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the segment baseline launched {counts}")
+    losses = gpu["train"]["losses"]
+    if len(losses) != SEG_MAX_ITER or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"segment baseline losses {losses}")
+    os.makedirs(out_dir["cpu"], exist_ok=True)
+    shutil.copy(os.path.join(out_dir["cuda"], WEIGHTS_FILE), out_dir["cpu"])
+    t0 = time.perf_counter()
+    cpu = segment_baseline.main(["--data_root", root, "--detect", "--device",
+                                 "cpu", "--output_dir", out_dir["cpu"]])
+    cpu_detect_s = time.perf_counter() - t0
+    rels = {}
+    for d in out_dir:
+        with open(os.path.join(out_dir[d],
+                               "baseline_relation_prediction.json")) as f:
+            rels[d] = json.load(f)["results"]
+    worst = same_relations(rels["cuda"], rels["cpu"], SEG_SCORE_TOL)
+    if gpu["detect"]["metrics"] != cpu["detect"]["metrics"]:
+        raise AssertionError(f"detect metrics: card {gpu['detect']} CPU "
+                             f"{cpu['detect']}")
+    if gpu["detect"]["n_relations"] == 0:
+        raise AssertionError("the segment baseline detected no relation")
+    # predict_segment_pairs alone at the store's largest pair bucket, on
+    # the test segment with the most proposal pairs
+    model = SegmentBaseline(cfg).cuda()
+    load_weights(os.path.join(out_dir["cuda"], WEIGHTS_FILE), model)
+    bucket = gpu["detect"]["max_pair_bucket"]
+    best = None
+    for key in store.segments("test"):
+        seg = store.load(*key)
+        tid, pairs = seg["trackid"], seg["pairs"]
+        test = (tid[pairs[:, 0]] < 0) & (tid[pairs[:, 1]] < 0)
+        if best is None or test.sum() > best[1].sum():
+            best = (seg["feats"], test)
+    feats = np.zeros((bucket, cfg.feature_dim), np.float32)
+    feats[:best[1].sum()] = feature_preprocess(best[0][best[1]], cfg)
+    valid = torch.arange(bucket, device="cuda") < int(best[1].sum())
+    f = torch.from_numpy(feats).cuda()
+    predict_ms = cuda_ms(lambda: predict_segment_pairs(model, f, valid),
+                         iters=50, warmup=5)
+    triplet_ids = store.observed_train_triplets()
+    res = {"store_gb": dir_gb(root), "write_seconds": write_s,
+           "smoke_train_ms_per_iter": gpu["train"]["ms_per_iter"],
+           "losses": [losses[0], losses[-1]],
+           "smoke_predict_ms": predict_ms, "smoke_pair_bucket": bucket,
+           "smoke_association_seconds":
+               gpu["detect"]["association_seconds"],
+           "cpu_detect_seconds": cpu_detect_s,
+           "metrics": gpu["detect"]["metrics"],
+           "n_relations": gpu["detect"]["n_relations"],
+           "max_score_diff": worst,
+           "train_step_ms": segment_train_step_ms(cfg, triplet_ids),
+           "observed_triplets": len(triplet_ids)}
+    shutil.rmtree(root)                  # 0.17 GB; the outputs stay
+    res.update(segment_reference_scale(model, cfg))
+    log(f"segment baseline (3t): {json.dumps(res)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"float32": counts}, res
+
+
+def segment_train_step_ms(cfg, triplet_ids):
+    """Device ms of one train step alone (loss, gradient, Adam) on a
+    batch of the CLI's 64 rows of seeded random features, over the store's
+    observed triplets, on a model of its own (CUDA events)."""
+    from vidsgg_big_tpu_torch.models.segment_baseline import (
+        SegmentBaseline, build_baseline_train_step)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = SegmentBaseline(cfg).cuda()
+    step = build_baseline_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=cfg.learning_rate))
+    feats = torch.rand((64, cfg.feature_dim), generator=gen, device="cuda")
+    labels = torch.randint(len(triplet_ids), (64,), generator=gen,
+                           device="cuda")
+    valid = torch.ones((64,), dtype=torch.bool, device="cuda")
+    tids = torch.as_tensor(triplet_ids, device="cuda")
+    return cuda_ms(lambda: step(feats, labels, valid, tids), iters=50,
+                   warmup=5)
+
+
+def segment_reference_features(cfg, n, bucket, gen):
+    """(bucket, D) seeded uniform features of ``n`` valid pairs, made as
+    ``feature_preprocess`` leaves them: each object's classeme and each
+    motion block sum to 1, the relative-position channels pass through;
+    zero padding."""
+    f = torch.zeros((bucket, cfg.feature_dim), device="cuda")
+    f[:n] = torch.rand((n, cfg.feature_dim), generator=gen, device="cuda")
+    nc, blk = cfg.num_obj_cats, cfg.block_size
+    edges = [0, nc, 2 * nc] + [2 * nc + (i + 1) * blk
+                               for i in range(cfg.num_motion_blocks)]
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        f[:n, lo:hi] /= f[:n, lo:hi].sum(-1, keepdim=True)
+    return f
+
+
+def segment_reference_scale(model, cfg):
+    """The detect path at a reference segment's scale, on the card with
+    the trained weights: SEG_REF_TRAJS trajectory proposals a segment
+    (random walks that go on across the segments, so that relations
+    merge), every ordered pair (9,900) on seeded random features padded to
+    the CLI's pair bucket (16,384).  predict_segment_pairs alone (device
+    ms, CUDA events); then each segment of SEG_REF_VIDEOS videos of
+    SEG_REF_FRAMES frames predicted (host ms a segment: features made,
+    predict, predictions to the host) and the greedy association on the
+    host (s, with its counts).  Returns the readings."""
+    from vidsgg_big_tpu_torch.data.segment_store import _random_walk_boxes
+    from vidsgg_big_tpu_torch.evaluation.association import (
+        Trajectory, greedy_relational_association, segment_video)
+    from vidsgg_big_tpu_torch.models.segment_baseline import (
+        predict_segment_pairs, predictions_to_host)
+    from vidsgg_big_tpu_torch.tools.segment_baseline import (_names,
+                                                             pair_bucket)
+    n_traj = SEG_REF_TRAJS
+    pairs = np.asarray([(i, j) for i in range(n_traj) for j in range(n_traj)
+                        if i != j], np.int64)
+    n, bucket = len(pairs), pair_bucket(len(pairs))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    valid = torch.arange(bucket, device="cuda") < n
+    f = segment_reference_features(cfg, n, bucket, gen)
+    predict_ms = cuda_ms(lambda: predict_segment_pairs(model, f, valid),
+                         iters=20, warmup=3)
+    rng = np.random.default_rng(7)
+    video_st, trajs_lookup = {}, {}
+    t0 = time.perf_counter()
+    for v in range(SEG_REF_VIDEOS):
+        vid = f"reference_scale_{v}"
+        tracks = [_random_walk_boxes(rng, SEG_REF_FRAMES)
+                  for _ in range(n_traj)]
+        video_st[vid] = []
+        for fs, fe in segment_video(0, SEG_REF_FRAMES):
+            f = segment_reference_features(cfg, n, bucket, gen)
+            preds = predictions_to_host(
+                *predict_segment_pairs(model, f, valid), pairs)
+            key = (vid, fs, fe)
+            video_st[vid].append((key, preds))
+            trajs_lookup[key] = [Trajectory(fs, fe, t[fs:fe])
+                                 for t in tracks]
+    n_segs = sum(map(len, video_st.values()))
+    detect_ms = 1e3 * (time.perf_counter() - t0) / n_segs
+    obj_names, pred_names = _names(cfg)
+    t0 = time.perf_counter()
+    rels = {vid: greedy_relational_association(st, trajs_lookup, obj_names,
+                                               pred_names)
+            for vid, st in video_st.items()}
+    association_s = time.perf_counter() - t0
+    n_rel = sum(map(len, rels.values()))
+    merged = sum(r["duration"][1] - r["duration"][0] > 30
+                 for rs in rels.values() for r in rs)
+    if not n_rel or not all(math.isfinite(r["score"])
+                            for rs in rels.values() for r in rs):
+        raise AssertionError(f"reference-scale association: {n_rel} "
+                             "relations")
+    return {"reference_scale": {
+        "trajectories_a_segment": n_traj, "pairs_a_segment": n,
+        "pair_bucket": bucket, "videos": SEG_REF_VIDEOS,
+        "frames_a_video": SEG_REF_FRAMES, "segments": n_segs,
+        "predictions_a_segment": cfg.seg_topk,
+        "associated_a_segment": 100,    # max_traj_num_in_clip's cap
+        "predict_ms": predict_ms, "detect_host_ms_a_segment": detect_ms,
+        "association_seconds": association_s,
+        "relations": n_rel, "relations_longer_than_a_segment": merged}}
+
+
+def same_leaves(served, live, what):
+    """Integer and bool leaves exactly, float leaves within 1e-6."""
+    from vidsgg_big_tpu_torch.utils.serving import flat_leaves
+    a, b = flat_leaves(served), flat_leaves(live)
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} leaves, live {len(b)}")
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: {x.dtype} {tuple(x.shape)} "
+                                 f"against live {y.dtype} {tuple(y.shape)}")
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+            worst = max(worst, (x - y).abs().max().item() if x.numel()
+                        else 0.0)
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{what}: an integer leaf differs")
+    return worst
+
+
+def drive_export_serving(card):
+    """Phase 3u: tools/export_model --device cuda of exp2 (bigc_vidvrd,
+    B=8, N=50, T=256) in float32 and bfloat16 and of grounding_weights
+    (float32) at stage B's geometry (B=4, Q=256, T=512); each artifact
+    reloaded through load_exported and run on the live phases' batches
+    (3a's exp2 batch, phase 4's stage-B batch), held equal to the live
+    infer step, its kernel launches counted while it runs, and timed
+    beside the live step.  Returns ({dtype: launches}, readings)."""
+    from vidsgg_big_tpu_torch.data.bucketing import (BucketSpec,
+                                                     bucketed_batches)
+    from vidsgg_big_tpu_torch.models.big_c import BigCConfig
+    from vidsgg_big_tpu_torch.models.grounding import (GroundingConfig,
+                                                       composed_encoders)
+    from vidsgg_big_tpu_torch.tools import eval_vidvrd, export_model
+    from vidsgg_big_tpu_torch.tools.eval_vidor import build_grounding_model
+    from vidsgg_big_tpu_torch.train.grounding_steps import (
+        build_grounding_infer_step)
+    from vidsgg_big_tpu_torch.train.steps import build_infer_step
+    from vidsgg_big_tpu_torch.utils.config import parse_config_py
+    from vidsgg_big_tpu_torch.utils.serving import load_exported
+    t_phase = time.perf_counter()
+    runs = {"exp2_float32": ("float32", ["--cfg_path", EXP2_CFG,
+                                         "--feat_dtype", "float32"]),
+            "exp2_bfloat16": ("bfloat16", ["--cfg_path", EXP2_CFG,
+                                           "--feat_dtype", "bfloat16",
+                                           "--compute_dtype", "bfloat16"]),
+            "grounding_float32": ("float32", [
+                "--cfg_path", GRD_CFG, "--model", "grounding",
+                "--batch_size", str(G_B), "--q_bucket", str(G_Q),
+                "--t_bucket", str(G_T)])}
+    by_dtype = {"float32": {}, "bfloat16": {}}
+    readings = {}
+    for name, (dtype, flags) in runs.items():
+        out = os.path.join(OUT_DIR, "export", name)
+        man = export_model.main(flags + ["--out", out, "--device", "cuda"])
+        serve, _ = load_exported(out)
+        if man["model"] == "grounding":
+            gmc = parse_config_py(GRD_CFG)["model_config"]
+            icfg = parse_config_py(GRD_CFG)["inference_config"]
+            gcfg = GroundingConfig.from_dict(gmc)
+            infer = build_grounding_infer_step(
+                build_grounding_model(gcfg).cuda(),
+                score_th=icfg["score_th"], tiou_th=icfg["tiou_th"],
+                bins_th=icfg["bins_th"], nms_th=icfg["nms_th"])
+            # the manifest's dtypes: what a server feeds the artifact
+            dev = [torch.from_numpy(a).to(getattr(torch, man["inputs"][n][1]))
+                   .cuda() for n, a in zip(export_model.GROUNDING_INPUTS,
+                                           grounding_batch())]
+            run_live = lambda: infer(*dev)
+            want = {"composed_attention":
+                    len(composed_encoders(gcfg, G_B, G_Q, G_T))}
+            videos = G_B
+        else:
+            mc = dict(parse_config_py(EXP2_CFG)["model_config"],
+                      compute_dtype=dtype)
+            cfg = BigCConfig.from_dict(mc)
+            recs, feat = eval_vidvrd.synthetic_records(BATCH, cfg, True)
+            _, _, props, _ = next(iter(bucketed_batches(
+                recs, BucketSpec(feat_dim=feat,
+                                 **eval_vidvrd.FULL_SIZE_BUCKETS),
+                BATCH, with_gt=False)))
+            infer = build_infer_step(eval_vidvrd.build_model(cfg, mc).cuda(),
+                                     topk=man["topk"])
+            dev = props.to("cuda", feats=getattr(torch, dtype))
+            run_live = lambda: infer(dev)
+            want = {"role_attention": cfg.n_deco_layers}
+            videos = BATCH
+        reset_counts()
+        served = serve(dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, n in want.items():
+            if counts[k] != n:
+                raise AssertionError(f"{name}: {counts[k]} {k} launches "
+                                     f"while the artifact ran, expected {n}")
+        by_dtype[dtype] = {k: by_dtype[dtype].get(k, 0) + v
+                           for k, v in counts.items()}
+        worst = same_leaves(served, run_live(), name)
+        serve_ms = cuda_ms(lambda: serve(dev), iters=10, warmup=2)
+        live_ms = cuda_ms(run_live, iters=10, warmup=2)
+        readings[name] = {
+            "export_seconds": man["export_seconds"],
+            "artifact_mb": man["artifact_bytes"] / 1e6,
+            "artifact_videos_per_s": videos * 1e3 / serve_ms,
+            "live_videos_per_s": videos * 1e3 / live_ms,
+            "launches": counts, "max_float_diff": worst}
+        log(f"export and serving {name}: {json.dumps(readings[name])}")
+        del serve, infer, dev, served
+        torch.cuda.empty_cache()
+    log(f"export and serving (3u) took {time.perf_counter() - t_phase:.1f} "
+        f"s; {card}")
+    return by_dtype, readings
+
+
 def check_outputs(card):
     """Phase 4 (exp2): card vs CPU on one batch; steady-state videos/s."""
     from vidsgg_big_tpu_torch.data.bucketing import (BucketSpec,
@@ -2812,6 +3215,11 @@ def main(argv=None):
     for split in ("vidvrd", "vidor"):     # the written data; logs stay
         shutil.rmtree(os.path.join(DISK_DIR, split))
     log(f"the on-disk phases took {time.perf_counter() - t0:.1f} s")
+    by_path["segment_baseline"], segments = drive_segment_baseline(card)
+    by_path["export_serving"], served = drive_export_serving(card)
+    log("visualisation (tools/visualize.py) is not driven here: it has no "
+        "device path, and this host has no OpenCV; the CPU tests hold it "
+        "against the JAX package's")
     # role attention runs in float32 under every compute and feature dtype;
     # each composed row counts the launches of its dtype's runs
     rows_of = {"role_attention": ("role_attention", (
@@ -2864,6 +3272,16 @@ def main(argv=None):
             f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB, matching on the "
             f"host {res['matching_host_ms']} ms a step; {card}")
 
+    log(f"segment baseline at the reference's widths: "
+        f"{json.dumps(segments)}; {card}")
+    for name, res in served.items():
+        log(f"exported {name}: {res['artifact_videos_per_s']} videos/s "
+            f"through the artifact, {res['live_videos_per_s']} live, "
+            f"export {res['export_seconds']:.1f} s, {res['artifact_mb']:.1f} "
+            f"MB; {card}")
+    log(f"role_attention wrapper wall time (through the registered op, exp2 "
+        f"B=8 N=50): {role['call_ms']} ms a call; the parent's in turns "
+        f"(--parent): {role['parent_call_ms']}; {card}")
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s; "
         f"{card}")
     print(json.dumps({"kernels": kernels}), flush=True)

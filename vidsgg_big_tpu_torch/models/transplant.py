@@ -1,5 +1,5 @@
-"""JAX-parameter -> port ``state_dict`` conversion (BIG-C, Base-C and
-grounding).
+"""JAX-parameter -> port ``state_dict`` conversion (BIG-C, Base-C,
+grounding and the segment baseline).
 
 The exact inverses of ``bigc_params_from_torch``,
 ``basec_params_from_torch`` and ``grounding_params_from_torch`` in the JAX
@@ -182,6 +182,15 @@ def grounding_state_dict_from_jax(params):
         for i in range(4):
             _dwconv(out, f"{name}.{i}.0", p[name][f"conv{i}"])
         _dwconv(out, f"{name}.4", p[name]["out"])
+    return out
+
+
+def segment_baseline_state_dict_from_jax(params):
+    """Port ``state_dict`` of :class:`SegmentBaseline` from the JAX
+    ``{"params": {"pred_fc": {"kernel", "bias"}}}`` tree (also the layout of
+    ``segment_baseline_weights.npz``): ``weight = kernel.T``."""
+    out = {}
+    _dense(out, "pred_fc", params["params"]["pred_fc"])
     return out
 
 

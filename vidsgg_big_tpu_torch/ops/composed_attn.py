@@ -18,7 +18,10 @@ plain versions draw the same mask.  For CUDA tensors the wrappers launch
 the kernels of ``csrc/composed_attn.cu`` (forward) and
 ``csrc/composed_attn_bwd.cu`` (backward) and count each launch; CPU tensors
 take the plain versions.  Nothing falls back from the card to the plain
-version.
+version.  The inference forward (dropout 0) goes through the registered op
+``vidsgg_big_tpu_torch::composed_attention`` (``torch.library``), so that
+``torch.export`` traces through it; the train forward and the backward
+stay behind :class:`ComposedAttention` (export is inference only).
 """
 from __future__ import annotations
 
@@ -221,17 +224,45 @@ def composed_attention(qh, x, vt, bias, scale: float, dropout: float = 0.0,
     the card) the train instance, counted in
     ``composed_attention_train.launches``.
     """
-    if _device_kind("composed_attention", x) == "cpu":
-        return composed_attention_plain(qh, x, vt, bias, scale, dropout,
-                                        seeds)
+    on_cpu = _device_kind("composed_attention", x) == "cpu"
     if dropout > 0.0:
+        if on_cpu:
+            return composed_attention_plain(qh, x, vt, bias, scale, dropout,
+                                            seeds)
         _check_seeds("composed_attention", seeds, qh.shape[0], x.device)
         return composed_attention_train(qh, x, vt, bias, scale, dropout,
                                         seeds)[0]
-    return _launch_forward(False, qh, x, vt, bias, scale, 0.0, None)[0]
+    return composed_attention_op(qh, x, vt, bias, float(scale))
 
 
 composed_attention.launches = 0
+
+
+def _composed_attention_cpu(qh, x, vt, bias, scale):
+    """The op's CPU kernel: the plain version, whose output is
+    ``empty_like(x)`` as the fake's."""
+    return composed_attention_plain(qh, x, vt, bias, scale)
+
+
+def _composed_attention_cuda(qh, x, vt, bias, scale):
+    return _launch_forward(False, qh, x, vt, bias, scale, 0.0, None)[0]
+
+
+def _composed_attention_fake(qh, x, vt, bias, scale):
+    return torch.empty_like(x)
+
+
+# the inference forward (dropout 0) as a registered op, through
+# torch.library.Library as role attention's (ops/role_attn.py)
+_LIB = torch.library.Library("vidsgg_big_tpu_torch", "FRAGMENT")
+_LIB.define("composed_attention(Tensor qh, Tensor x, Tensor vt, "
+            "Tensor bias, float scale) -> Tensor")
+_LIB.impl("composed_attention", _composed_attention_cpu, "CPU")
+_LIB.impl("composed_attention", _composed_attention_cuda, "CUDA")
+torch.library.register_fake("vidsgg_big_tpu_torch::composed_attention",
+                            _composed_attention_fake, lib=_LIB)
+composed_attention_op = \
+    torch.ops.vidsgg_big_tpu_torch.composed_attention.default
 
 
 def composed_attention_train(qh, x, vt, bias, scale: float, dropout: float,

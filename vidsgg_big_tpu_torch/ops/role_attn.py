@@ -10,9 +10,11 @@ then the value matmul against the entity nodes:
   att = softmax_n(mask(logits)) * softmax_r(logits)
   values[r, q, :] = att[r, q, :] @ enco
 
-``role_attention`` launches the kernel of ``csrc/role_attn.cu`` for CUDA
-tensors and uses :func:`role_attention_plain` for CPU tensors; it never
-falls back from the card to the plain version.
+``role_attention`` calls the registered op ``vidsgg_big_tpu_torch::
+role_attention`` (``torch.library``), so that ``torch.export`` traces
+through it: its CUDA kernel launches the kernel of ``csrc/role_attn.cu``,
+its CPU kernel is :func:`role_attention_plain`, and its fake gives the
+outputs' shapes.  Nothing falls back from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -79,21 +81,51 @@ def role_attention(pred2att, enti2att, enco, traj_mask, dim_enti: int):
     (the decoder passes the halves of its projections, (B, 2, *, Dh) with
     strides).  Returns float32 ``att`` and ``values``.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (and count the launch
-    in ``role_attention.launches``).
+    in ``role_attention.launches``), inside an exported program too; other
+    devices raise.
     """
     if not all(x.is_floating_point() for x in (pred2att, enti2att, enco)):
         raise TypeError("role_attention: p, e and enco must be floating "
                         "point")
-    f32 = [x.to(torch.float32) for x in (pred2att, enti2att, enco)]
-    if pred2att.device.type == "cpu":
-        return role_attention_plain(*f32, traj_mask, dim_enti)
-    if pred2att.device.type != "cuda":
+    if pred2att.device.type not in ("cpu", "cuda"):
         raise ValueError(f"role_attention: unsupported device "
                          f"{pred2att.device}")
-    return _launch(*f32, traj_mask, dim_enti)
+    f32 = [x.to(torch.float32) for x in (pred2att, enti2att, enco)]
+    return role_attention_op(*f32, traj_mask, dim_enti)
 
 
 role_attention.launches = 0
+
+
+def _role_attention_cpu(p, e, enco, traj_mask, dim_enti):
+    """The op's CPU kernel: the plain version, its outputs contiguous as
+    the fake's."""
+    att, values = role_attention_plain(p, e, enco, traj_mask, dim_enti)
+    return att.contiguous(), values.contiguous()
+
+
+def _role_attention_cuda(p, e, enco, traj_mask, dim_enti):
+    return _launch(p, e, enco, traj_mask, dim_enti)
+
+
+def _role_attention_fake(p, e, enco, traj_mask, dim_enti):
+    b, _, q, _ = p.shape
+    return (p.new_empty((b, 2, q, e.shape[2]), dtype=torch.float32),
+            p.new_empty((b, 2, q, enco.shape[2]), dtype=torch.float32))
+
+
+# Registered through torch.library.Library, not torch.library.custom_op:
+# the dispatcher and torch.export see the same op, without custom_op's
+# Python layer around each call (PERF.md gives the wrapper's wall time a
+# call under each registration).
+_LIB = torch.library.Library("vidsgg_big_tpu_torch", "FRAGMENT")
+_LIB.define("role_attention(Tensor p, Tensor e, Tensor enco, "
+            "Tensor traj_mask, int dim_enti) -> (Tensor, Tensor)")
+_LIB.impl("role_attention", _role_attention_cpu, "CPU")
+_LIB.impl("role_attention", _role_attention_cuda, "CUDA")
+torch.library.register_fake("vidsgg_big_tpu_torch::role_attention",
+                            _role_attention_fake, lib=_LIB)
+role_attention_op = torch.ops.vidsgg_big_tpu_torch.role_attention.default
 
 
 def _kernel_strides(name, x):

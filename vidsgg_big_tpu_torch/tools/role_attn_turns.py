@@ -2,7 +2,7 @@
 checkouts' kernels and its own split choices, in turns, on one card.
 
     python -m vidsgg_big_tpu_torch.tools.role_attn_turns \\
-        [OTHER_CHECKOUT ...] [--splits S [S ...]]
+        [OTHER_CHECKOUT ...] [--splits S [S ...]] [--wrapper]
 
 Builds ``vidsgg_big_tpu_torch/csrc/role_attn.cu`` of each OTHER_CHECKOUT
 (with its own headers) with the port's nvcc flags into a scratch library
@@ -19,6 +19,14 @@ replay of a CUDA graph of 20 calls over 20 (CUDA events; each graph replayed
 once before), so it holds the kernels and the gaps between them and no host
 work.  Prints one line per shape and, last, a JSON line.  Needs a CUDA card
 and the CUDA toolkit.
+
+:func:`wrapper_turns` (``--wrapper``, and ``chip_smoke.py --parent``)
+times the Python wrapper instead (``ops.role_attn.role_attention``, host milliseconds a
+call, the least of five readings of 1,000 calls each ending in a
+synchronize, at the three shapes, on the layer's views): each checkout's
+in a fresh process of its own, in turns A B B A, so that two versions of
+the wrapper (e.g. a direct ``ctypes`` call and a registered op) are
+compared on one card.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import argparse
 import ctypes
 import json
 import math
+import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -55,7 +65,48 @@ def parse_args(argv=None):
     parser.add_argument("other", nargs="*", help="roots of other checkouts")
     parser.add_argument("--splits", type=int, nargs="*", default=[],
                         help="also time this kernel at these forced splits")
+    parser.add_argument("--wrapper", action="store_true",
+                        help="time each checkout's Python wrapper (host ms "
+                             "a call) instead of the kernels")
     return parser.parse_args(argv)
+
+
+# run in a fresh process from a checkout's root: that checkout's wrapper,
+# through names (SHAPES, layer_inputs, wall_ms, DIM_ENTI) that older
+# copies of this module have too
+WRAPPER_SNIPPET = """
+import json
+from vidsgg_big_tpu_torch.ops.role_attn import role_attention
+from vidsgg_big_tpu_torch.tools import role_attn_turns as t
+out = {}
+for name, b, n in t.SHAPES:
+    args = t.layer_inputs(b, n, seed=b * 1000 + n)
+    out[name] = min(t.wall_ms(lambda: role_attention(*args, t.DIM_ENTI),
+                              calls=1000) for _ in range(5))
+print(json.dumps(out))
+"""
+
+
+def wrapper_turns(others) -> dict:
+    """{checkout: {shape: [ms a call, one a turn]}}: this checkout's
+    wrapper ("this") and each other's, each in a fresh process started
+    from its root, in turns A B B A."""
+    roots = {"this": str(Path(__file__).resolve().parents[2])}
+    roots.update({o: str(Path(o).resolve()) for o in others})
+    times = {k: {name: [] for name, _, _ in SHAPES} for k in roots}
+    for other in others:
+        for key in (other, "this", "this", other):
+            proc = subprocess.run(
+                [sys.executable, "-c", WRAPPER_SNIPPET], cwd=roots[key],
+                env=dict(os.environ, PYTHONPATH=roots[key]),
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"wrapper timing in {roots[key]} "
+                                   f"failed:\n{proc.stderr[-4000:]}")
+            for name, ms in json.loads(
+                    proc.stdout.strip().splitlines()[-1]).items():
+                times[key][name].append(ms)
+    return times
 
 
 def layer_inputs(b, n, seed=0, device="cuda"):
@@ -198,6 +249,15 @@ def main(argv=None) -> int:
         return 2
     strict_float32()
     card = card_name_and_power()
+    if args.wrapper:
+        times = wrapper_turns(args.other)
+        for name, b, n in SHAPES:
+            print(f"role_attn_turns wrapper {name} (B={b}, N={n}), host ms "
+                  "a call in turns A B B A: " + ", ".join(
+                      f"{k} {v[name]}" for k, v in times.items())
+                  + f"; {card}", flush=True)
+        print(json.dumps({"card": card, "wrapper_ms": times}), flush=True)
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = other_libraries(args.other, tmp)
         results = run_turns(libs, args.splits)

@@ -1,0 +1,7 @@
+"""Device idle ms a BIG-C train step inside its ``optim`` span (the global-norm
+clip and Adam), from the program-span pass."""
+from benchmark.harness.program_pass import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "optim", ["bigc.train"])

@@ -31,6 +31,7 @@ from torch import nn
 from ..data.types import TrackletBatch
 from ..ops.segments import (stretch_conv_patches, adaptive_max_pool1d,
                             stretch_weighted_mean)
+from ..utils.spans import span
 from .layers import (MLP, TransformerEncoderLayer, RoleAttnDecoderLayer,
                      sine_pos_embedding)
 
@@ -302,30 +303,35 @@ class BigC(TrackletEncoder):
             cdt = self.compute_dtype
             batch = batch.replace(feats=batch.feats.to(cdt) * scale_like(
                 batch.feat_scale, batch.feats.dim()).to(cdt))
-        enti2enco = self.encode(batch)
         mask = batch.traj_mask
-        out = enti2enco
-        for layer in self.encoder_layers:
-            out = layer(out, key_mask=mask, generator=generator)
-        enco_output = out                                     # (B, N, E)
+        with span("encoder"):
+            enti2enco = self.encode(batch)
+            out = enti2enco
+            for layer in self.encoder_layers:
+                out = layer(out, key_mask=mask, generator=generator)
+            enco_output = out                                 # (B, N, E)
 
-        bsz = enti2enco.shape[0]
-        pred_queries = self.pred_query_init[None].expand(bsz, -1, -1)
-        att = None
-        for layer in self.decoder_layers:
-            pred_queries, att = layer(pred_queries, self.pos_embedding,
-                                      enco_output, mask, generator)
+        with span("decoder"):
+            bsz = enti2enco.shape[0]
+            pred_queries = self.pred_query_init[None].expand(bsz, -1, -1)
+            att = None
+            for layer in self.decoder_layers:
+                pred_queries, att = layer(pred_queries, self.pos_embedding,
+                                          enco_output, mask, generator)
 
-        extra_avg = None
-        if consumed:
-            # the reference averages over the *stretched* axis
-            # (model_0v10.py:470): a repeat-counts-weighted raw-frame mean
-            lengths = batch.durations[..., 1] - batch.durations[..., 0] + 1
-            extra_avg = stretch_weighted_mean(dequantize_extra(
-                batch.feats[..., cfg.dim_feat:expect], batch.feat_scale),
-                lengths)
-        pred_logits = self._prediction_head(
-            pred_queries, att, batch.cat_ids, extra_avg, enti2enco)
+        with span("head"):
+            extra_avg = None
+            if consumed:
+                # the reference averages over the *stretched* axis
+                # (model_0v10.py:470): a repeat-counts-weighted raw-frame
+                # mean
+                lengths = batch.durations[..., 1] - \
+                    batch.durations[..., 0] + 1
+                extra_avg = stretch_weighted_mean(dequantize_extra(
+                    batch.feats[..., cfg.dim_feat:expect],
+                    batch.feat_scale), lengths)
+            pred_logits = self._prediction_head(
+                pred_queries, att, batch.cat_ids, extra_avg, enti2enco)
         return {"pred_queries": pred_queries, "pred_logits": pred_logits,
                 "att": att, "enti_feat": enti2enco}
 

@@ -28,6 +28,7 @@ from ..ops.attention import (attn_chunked_stored, chunked_attention,
 from ..ops.composed_attn import fused_composed_attention
 from ..ops.temporal import tiou, tiou_left_right
 from ..parallel.mesh import data_sum
+from ..utils.spans import span
 from .layers import LN_EPS, MultiHeadAttention, _linear, sine_pos_embedding
 
 HEADS = 8        # QANet attention heads (reference grd_model_v5.py:103)
@@ -348,43 +349,52 @@ class GroundingModel(nn.Module):
         b, t, _ = video_feats.shape
         q = query_cats.shape[1]
         hid = cfg.dim_hidden
-        qc = query_cats.long()
-        words_emb = torch.stack([self.EntiNameEmb[qc[..., 0]],
-                                 self.PredNameEmb[qc[..., 1]],
-                                 self.EntiNameEmb[qc[..., 2]]], dim=2)
-        video = _linear(self.video_fc, video_feats.to(cdt))        # (B,T,H)
-        words = _linear(self.query_fc, words_emb.to(cdt))          # (B,Q,3,H)
-        temp = _linear(self.temp_fc, temporal.to(cdt))             # (B,Q,H)
-        query = words + temp[:, :, None, :]
+        with span("embed"):
+            qc = query_cats.long()
+            words_emb = torch.stack([self.EntiNameEmb[qc[..., 0]],
+                                     self.PredNameEmb[qc[..., 1]],
+                                     self.EntiNameEmb[qc[..., 2]]], dim=2)
+            video = _linear(self.video_fc, video_feats.to(cdt))    # (B,T,H)
+            words = _linear(self.query_fc, words_emb.to(cdt))      # (B,Q,3,H)
+            temp = _linear(self.temp_fc, temporal.to(cdt))         # (B,Q,H)
+            query = words + temp[:, :, None, :]
 
-        video = self.video_encoder(video, mask=clip_mask, generator=generator)
-        query = self.query_encoder(query.reshape(b * q, 3, hid),
-                                   generator=generator).reshape(b, q, 3, hid)
+        with span("encoders"):
+            video = self.video_encoder(video, mask=clip_mask,
+                                       generator=generator)
+            query = self.query_encoder(
+                query.reshape(b * q, 3, hid),
+                generator=generator).reshape(b, q, 3, hid)
 
         # similarity fusion (reference grd_model_v5.py:331-368)
-        vproj = _linear(self.proj2sim, video)                     # (B,T,H)
-        sim = torch.einsum("bth,bqlh->bqtl", vproj, query).float()
-        sim_r = torch.softmax(sim, dim=-1).to(cdt)               # over words
-        cm = clip_mask[:, None, :, None]
-        sim_c = torch.softmax(sim.masked_fill(
-            ~cm, torch.finfo(torch.float32).min), dim=-2)        # over clips
-        sim_c = sim_c.masked_fill(~cm, 0.0).to(cdt)
-        mat_a = torch.einsum("bqtl,bqlh->bqth", sim_r, query)
-        # sim_r (sim_c^T video) instead of (sim_r sim_c^T) video: the same
-        # product through the small (Q, 3, H) contraction, no (Q, T, T)
-        cv = torch.einsum("bqsl,bsh->bqlh", sim_c, video)
-        mat_b = torch.einsum("bqtl,bqlh->bqth", sim_r, cv)
-        vexp = video[:, None]
-        combined = torch.cat([vexp.expand_as(mat_a), mat_a, mat_a * vexp,
-                              mat_b * vexp], dim=-1)             # (B,Q,T,4H)
-        combined = _linear(self.vq_fc, combined)
-        flat_mask = clip_mask.repeat_interleave(q, dim=0)        # (BQ, T)
-        flat = self.combined_encoder(combined.reshape(b * q, t, hid),
-                                     mask=flat_mask, generator=generator)
-        k = cfg.num_bins
-        regrs = self.regr_head(flat, mask=flat_mask).reshape(b, q, t, 2, k)
-        conf = self.conf_head(flat, mask=flat_mask).reshape(b, q, t, k)
-        cls = self.cls_head(flat, mask=flat_mask).reshape(b, q, t, k)
+        with span("fusion"):
+            vproj = _linear(self.proj2sim, video)                 # (B,T,H)
+            sim = torch.einsum("bth,bqlh->bqtl", vproj, query).float()
+            sim_r = torch.softmax(sim, dim=-1).to(cdt)           # over words
+            cm = clip_mask[:, None, :, None]
+            sim_c = torch.softmax(sim.masked_fill(
+                ~cm, torch.finfo(torch.float32).min), dim=-2)    # over clips
+            sim_c = sim_c.masked_fill(~cm, 0.0).to(cdt)
+            mat_a = torch.einsum("bqtl,bqlh->bqth", sim_r, query)
+            # sim_r (sim_c^T video) instead of (sim_r sim_c^T) video: the
+            # same product through the small (Q, 3, H) contraction, no
+            # (Q, T, T)
+            cv = torch.einsum("bqsl,bsh->bqlh", sim_c, video)
+            mat_b = torch.einsum("bqtl,bqlh->bqth", sim_r, cv)
+            vexp = video[:, None]
+            combined = torch.cat([vexp.expand_as(mat_a), mat_a, mat_a * vexp,
+                                  mat_b * vexp], dim=-1)         # (B,Q,T,4H)
+            combined = _linear(self.vq_fc, combined)
+        with span("combined"):
+            flat_mask = clip_mask.repeat_interleave(q, dim=0)    # (BQ, T)
+            flat = self.combined_encoder(combined.reshape(b * q, t, hid),
+                                         mask=flat_mask, generator=generator)
+        with span("heads"):
+            k = cfg.num_bins
+            regrs = self.regr_head(flat, mask=flat_mask).reshape(
+                b, q, t, 2, k)
+            conf = self.conf_head(flat, mask=flat_mask).reshape(b, q, t, k)
+            cls = self.cls_head(flat, mask=flat_mask).reshape(b, q, t, k)
         return regrs, conf, cls
 
 

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from ..utils.spans import span
+
 
 @torch.no_grad()
 def hungarian(cost, n_gt):
@@ -30,15 +32,18 @@ def hungarian(cost, n_gt):
       truth, -1 for padding and for the ground truths left unmatched when
       n_gt > Q (min(Q, n_gt) pairs, as scipy's rectangular assignment).
     """
-    c = cost.detach().float().cpu().numpy()
-    n = torch.as_tensor(n_gt).cpu().numpy()
-    out = np.full(c.shape[::2], -1, np.int64)
-    for b in range(c.shape[0]):
-        m = int(n[b])
-        if m == 0:
-            continue
-        if not np.isfinite(c[b, :, :m]).all():
-            raise ValueError(f"video {b}: non-finite matching cost")
-        rows, cols = linear_sum_assignment(c[b, :, :m])
-        out[b, cols] = rows
-    return torch.from_numpy(out).to(cost.device)
+    with span("match.fetch"):
+        c = cost.detach().float().cpu().numpy()
+        n = torch.as_tensor(n_gt).cpu().numpy()
+    with span("match.solve"):
+        out = np.full(c.shape[::2], -1, np.int64)
+        for b in range(c.shape[0]):
+            m = int(n[b])
+            if m == 0:
+                continue
+            if not np.isfinite(c[b, :, :m]).all():
+                raise ValueError(f"video {b}: non-finite matching cost")
+            rows, cols = linear_sum_assignment(c[b, :, :m])
+            out[b, cols] = rows
+    with span("match.upload"):
+        return torch.from_numpy(out).to(cost.device)

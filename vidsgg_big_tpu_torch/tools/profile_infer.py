@@ -25,12 +25,15 @@ combined encoder).  ``--model bigc_train`` times the BIG-C train step
 (forward, vIoU alignment, matching on the host, losses, backward, clip,
 Adam; dropout 0.1) of the exp2 model at bench.py's BIG-C train geometry: 8
 full-size videos at N=50 x T=256, 16 GT trajectories and 32 predicate
-slots.  Each runs 10 steps under ``torch.profiler`` and prints one JSON
-line:
+slots.  Each runs 10 steps under ``torch.profiler`` with the program's
+spans recorded (``utils/spans.py``) and prints one JSON line:
 milliseconds per batch (CUDA events), the device's busy share of that
-window (kernel time over window time) and the kernels with the most device
-time, each with its share and launches per batch.  The full kernel table
-goes to ``--out``.
+window (kernel time over window time), the kernels with the most device
+time, each with its share and launches per batch, and for each program
+span the device ms and launches per batch of the kernels put down to it:
+each kernel goes to the innermost span around the CPU op that launched it
+(the profiler's kernel-to-op correlation), with its top kernels.  The full
+kernel table goes to ``--out``.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ from ..train.steps import (build_basec_infer_step, build_basec_train_step,
 from ..train.train_state import TrainState
 from ..utils.config import parse_config_py
 from ..utils.device import card_name_and_power, resolve_device, strict_float32
+from ..utils.spans import recording
 from . import eval_vidor, eval_vidvrd
 
 
@@ -63,6 +67,7 @@ CFG_PATH = "experiments/exp2/config_.py"
 GRD_CFG_PATH = "experiments/grounding_weights/config_.py"
 BASEC_CFG_PATH = "experiments/exp6/config_rt200.py"
 BATCH, ITERS, TOP = 8, 10, 12
+SPAN_TOP = 5          # kernels listed under each program span
 # VidOR stage A's geometry: 4 videos on the N=64 rung, the T=4096 bucket
 A_B, A_N, A_T = 4, 64, 4096
 G_B, G_Q, G_T = 4, 256, 512        # bench.py's grounding geometry
@@ -203,7 +208,8 @@ def profile(compute_dtype: str, model: str = "bigc", feat_dtype=None):
     end = torch.cuda.Event(enable_timing=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with recording() as records, \
+            torch.profiler.profile(activities=acts) as prof:
         start.record()
         for _ in range(ITERS):
             step()
@@ -231,8 +237,39 @@ def profile(compute_dtype: str, model: str = "bigc", feat_dtype=None):
             {"kernel": k[:80], "ms_per_batch": ms / ITERS,
              "share": ms / kernel_ms, "launches_per_batch": n / ITERS}
             for ms, n, k in rows[:TOP]],
+        "spans": span_kernels(prof.events(), {r.name for r in records}),
     }
     return summary, rows
+
+
+def span_kernels(events, names) -> dict:
+    """{span: {device ms, launches and top kernels per batch}} over the
+    profile's ``events``: each kernel put down to the innermost span of
+    ``names`` around the start of the CPU op that launched it (``(none)``
+    outside every span)."""
+    cpu = torch.autograd.DeviceType.CPU
+    around = [(ev.time_range.start, ev.time_range.end, ev.name)
+              for ev in events if ev.device_type == cpu and ev.name in names]
+    table = {}
+    for ev in events:
+        if ev.device_type != cpu or not ev.kernels or ev.name in names:
+            continue
+        t = ev.time_range.start
+        inside = [(e - s, n) for s, e, n in around if s <= t <= e]
+        row = table.setdefault(min(inside)[1] if inside else "(none)",
+                               {"ms": 0.0, "launches": 0, "kernels": {}})
+        for k in ev.kernels:
+            row["ms"] += k.duration / 1e3
+            row["launches"] += 1
+            row["kernels"][k.name] = row["kernels"].get(k.name, 0.0) + \
+                k.duration / 1e3
+    return {name: {"device_ms_per_batch": row["ms"] / ITERS,
+                   "launches_per_batch": row["launches"] / ITERS,
+                   "top_kernels": [[k[:160], ms / ITERS] for k, ms in sorted(
+                       row["kernels"].items(), key=lambda kv: -kv[1])[
+                           :SPAN_TOP]]}
+            for name, row in sorted(table.items(),
+                                    key=lambda kv: -kv[1]["ms"])}
 
 
 def main(argv=None):

@@ -15,6 +15,7 @@ import torch
 from ..models.grounding import (GroundingModel, grounding_decode,
                                 grounding_gt_labels, grounding_loss)
 from ..parallel.mesh import gather_rows
+from ..utils.spans import span
 from .grounding_data import prepare_grounding_gt
 from .steps import step_metrics
 from .train_state import TrainState
@@ -35,21 +36,25 @@ def grounding_train_loss(model: GroundingModel, video_feats, clip_mask,
     summed over its data ranks.
     """
     cfg = model.cfg
-    prep = prepare_grounding_gt(gts, video_len, cfg.num_pred_cats,
-                                noise=noise, generator=generator)
+    with span("targets"):
+        prep = prepare_grounding_gt(gts, video_len, cfg.num_pred_cats,
+                                    noise=noise, generator=generator)
     t = video_feats.shape[1]
     p = prep["query_cats"].shape[1]
     cats2 = torch.cat([prep["query_cats"], prep["neg_query_cats"]], dim=1)
     temp2 = torch.cat([prep["temporal"]] * 2, dim=1)
     qm2 = torch.cat([prep["query_mask"]] * 2, dim=1)
-    regrs, conf, cls = model(video_feats, clip_mask, cats2, temp2, qm2,
-                             generator=generator)
+    with span("forward"):
+        regrs, conf, cls = model(video_feats, clip_mask, cats2, temp2, qm2,
+                                 generator=generator)
     out = (regrs[:, :p], conf[:, :p], cls[:, :p])
     neg_out = (regrs[:, p:], conf[:, p:], cls[:, p:])
-    labels = grounding_gt_labels(prep["target"], n_clips, t, cfg.num_bins)
-    return grounding_loss(out, neg_out, labels, prep["group_rep"],
-                          prep["is_rep"], prep["query_mask"], clip_mask, cfg,
-                          mesh=mesh)
+    with span("loss"):
+        labels = grounding_gt_labels(prep["target"], n_clips, t,
+                                     cfg.num_bins)
+        return grounding_loss(out, neg_out, labels, prep["group_rep"],
+                              prep["is_rep"], prep["query_mask"], clip_mask,
+                              cfg, mesh=mesh)
 
 
 def build_grounding_train_step(model: GroundingModel, state: TrainState):
@@ -66,13 +71,15 @@ def build_grounding_train_step(model: GroundingModel, state: TrainState):
 
     def step(video_feats, clip_mask, n_clips, gts, video_len, generator=None,
              noise=None):
-        draws = generator if mesh is None else mesh.draws(generator)
-        total, terms = grounding_train_loss(
-            model, video_feats, clip_mask, n_clips, gts, video_len,
-            generator=draws, noise=noise, mesh=mesh)
-        total.backward()
-        state.apply_gradients()
-        return step_metrics(dict(terms, total=total), None, mesh)
+        with span("grounding.train"):
+            draws = generator if mesh is None else mesh.draws(generator)
+            total, terms = grounding_train_loss(
+                model, video_feats, clip_mask, n_clips, gts, video_len,
+                generator=draws, noise=noise, mesh=mesh)
+            with span("backward"):
+                total.backward()
+            state.apply_gradients()
+            return step_metrics(dict(terms, total=total), None, mesh)
 
     return step
 
@@ -97,12 +104,15 @@ def build_grounding_infer_step(model: GroundingModel, *, score_th, tiou_th,
     @torch.inference_mode()
     def decode(video_feats, clip_mask, n_clips, query_cats, temporal,
                query_mask):
-        regrs, conf, cls = model(video_feats, clip_mask, query_cats,
-                                 temporal, query_mask, generator=rows)
-        return grounding_decode(regrs, conf, cls, temporal, n_clips,
-                                clip_mask, query_mask, score_th=score_th,
-                                tiou_th=tiou_th, bins_th=bins_th,
-                                nms_th=nms_th)
+        with span("grounding.infer"):
+            with span("forward"):
+                regrs, conf, cls = model(video_feats, clip_mask, query_cats,
+                                         temporal, query_mask, generator=rows)
+            with span("postprocess"):
+                return grounding_decode(regrs, conf, cls, temporal, n_clips,
+                                        clip_mask, query_mask,
+                                        score_th=score_th, tiou_th=tiou_th,
+                                        bins_th=bins_th, nms_th=nms_th)
 
     if mesh is None:
         return decode

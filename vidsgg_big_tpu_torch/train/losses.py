@@ -17,6 +17,7 @@ from ..data.types import GraphBatch, TrackletBatch
 from ..ops.boxes import viou_matrix_grid
 from ..ops.matching import hungarian
 from ..parallel.mesh import data_sum
+from ..utils.spans import span
 
 _EPS = 1e-7
 
@@ -172,14 +173,18 @@ def bigc_train_loss(outputs, props: TrackletBatch, gts: GraphBatch, cfg,
     matching: the (B, P) assignment and the (B, Q, P) cost it solved, both
     without gradient.  ``mesh``: the counts are global (:func:`bigc_losses`).
     """
-    aligned, _ = align_gt_adjacency(props, gts, cfg.positive_viou_th,
-                                    t_abs=t_abs)
-    cost = matching_cost(
-        outputs["pred_logits"], outputs["att"], gts, aligned,
-        props.traj_mask, cfg.cost_coeff_cls, cfg.cost_coeff_adj)
-    query4gt = hungarian(cost, gts.pred_mask.sum(-1))
-    total, terms = bigc_losses(
-        outputs["pred_logits"], outputs["att"], gts, aligned,
-        props.traj_mask, query4gt, cfg.num_querys, cfg.neg_weight,
-        cfg.loss_coeff_cls, cfg.loss_coeff_adj, mesh=mesh)
+    with span("loss"):
+        with span("align"):
+            aligned, _ = align_gt_adjacency(props, gts, cfg.positive_viou_th,
+                                            t_abs=t_abs)
+        with span("match"):
+            cost = matching_cost(
+                outputs["pred_logits"], outputs["att"], gts, aligned,
+                props.traj_mask, cfg.cost_coeff_cls, cfg.cost_coeff_adj)
+            query4gt = hungarian(cost, gts.pred_mask.sum(-1))
+        with span("terms"):
+            total, terms = bigc_losses(
+                outputs["pred_logits"], outputs["att"], gts, aligned,
+                props.traj_mask, query4gt, cfg.num_querys, cfg.neg_weight,
+                cfg.loss_coeff_cls, cfg.loss_coeff_adj, mesh=mesh)
     return total, terms, (query4gt, cost)

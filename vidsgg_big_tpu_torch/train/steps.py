@@ -22,6 +22,7 @@ from ..models.big_c import BigC
 from ..models.triplets import (Triplets, construct_triplets,
                                pairwise_construct_triplets)
 from ..parallel.mesh import data_sum, gather_rows
+from ..utils.spans import span
 from .losses import bigc_train_loss
 from .train_state import TrainState
 
@@ -60,13 +61,16 @@ def build_train_step(model: BigC, state: TrainState, t_abs: int = 1024):
     model.train()
 
     def step(props, gts, generator=None):
-        draws = generator if mesh is None else mesh.draws(generator)
-        out = model(props, generator=draws)
-        total, terms, _ = bigc_train_loss(out, props, gts, cfg,
-                                          t_abs=t_abs, mesh=mesh)
-        total.backward()
-        norm = state.apply_gradients()
-        return step_metrics(dict(terms, total=total), norm, mesh)
+        with span("bigc.train"):
+            draws = generator if mesh is None else mesh.draws(generator)
+            with span("forward"):
+                out = model(props, generator=draws)
+            total, terms, _ = bigc_train_loss(out, props, gts, cfg,
+                                              t_abs=t_abs, mesh=mesh)
+            with span("backward"):
+                total.backward()
+            norm = state.apply_gradients()
+            return step_metrics(dict(terms, total=total), norm, mesh)
 
     return step
 
@@ -84,12 +88,15 @@ def build_infer_step(model: BigC, topk: int, mesh=None):
 
     @torch.inference_mode()
     def triplets(props) -> Triplets:
-        out = model(props)
-        return construct_triplets(
-            out["pred_logits"], out["att"], props.durations, props.scores,
-            props.cat_ids, props.traj_mask, topk=topk,
-            num_enti_cats=cfg.num_enti_cats,
-            num_pred_cats=cfg.num_pred_cats)
+        with span("bigc.infer"):
+            with span("forward"):
+                out = model(props)
+            with span("postprocess"):
+                return construct_triplets(
+                    out["pred_logits"], out["att"], props.durations,
+                    props.scores, props.cat_ids, props.traj_mask, topk=topk,
+                    num_enti_cats=cfg.num_enti_cats,
+                    num_pred_cats=cfg.num_pred_cats)
 
     if mesh is None:
         return triplets
@@ -110,12 +117,16 @@ def build_basec_train_step(model: BaseC, state: TrainState,
     model.train()
 
     def step(props, gts, generator=None):
-        out = model(props)
-        total, terms = basec_train_loss(out, props, gts, cfg, t_abs=t_abs,
-                                        mesh=mesh)
-        total.backward()
-        norm = state.apply_gradients()
-        return step_metrics(dict(terms, total=total), norm, mesh)
+        with span("basec.train"):
+            with span("forward"):
+                out = model(props)
+            with span("loss"):
+                total, terms = basec_train_loss(out, props, gts, cfg,
+                                                t_abs=t_abs, mesh=mesh)
+            with span("backward"):
+                total.backward()
+            norm = state.apply_gradients()
+            return step_metrics(dict(terms, total=total), norm, mesh)
 
     return step
 
@@ -130,12 +141,16 @@ def build_basec_infer_step(model: BaseC, topk: int, mesh=None):
 
     @torch.inference_mode()
     def triplets(props) -> Triplets:
-        out = model(props)
-        return pairwise_construct_triplets(
-            out["pred_logits"], out["pair_ids"], props.durations,
-            props.scores, props.cat_ids, props.traj_mask, topk=topk,
-            num_enti_cats=cfg.num_enti_cats,
-            num_pred_cats=cfg.num_pred_cats, rt_topk=cfg.rt_triplets_topk)
+        with span("basec.infer"):
+            with span("forward"):
+                out = model(props)
+            with span("postprocess"):
+                return pairwise_construct_triplets(
+                    out["pred_logits"], out["pair_ids"], props.durations,
+                    props.scores, props.cat_ids, props.traj_mask, topk=topk,
+                    num_enti_cats=cfg.num_enti_cats,
+                    num_pred_cats=cfg.num_pred_cats,
+                    rt_topk=cfg.rt_triplets_topk)
 
     if mesh is None:
         return triplets

@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from ..parallel.sharding import (full_state_dict, gather_tensor, model_plan,
                                  shard_state_dict, shard_tensor)
+from ..utils.spans import span
 
 KEEP_CHECKPOINTS = 5
 
@@ -124,21 +125,24 @@ class TrainState:
         """Clip, then one Adam update at this step's learning rate.  A
         parameter without a gradient (unused by the forward) counts as a zero
         gradient, as in JAX."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        if self.mesh is not None:
-            self.sync_gradients(grads)
-        split = [n in self.plan for n in self.names]
-        norm = clip_by_global_norm(grads, self.grad_clip, split,
-                                   self.mesh and self.mesh.model_axis)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr()
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
-        return norm
+        with span("optim"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in self.params]
+            if self.mesh is not None:
+                self.sync_gradients(grads)
+            with span("clip"):
+                split = [n in self.plan for n in self.names]
+                norm = clip_by_global_norm(grads, self.grad_clip, split,
+                                           self.mesh and self.mesh.model_axis)
+            with span("adam"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = self.lr()
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
+            self.step += 1
+            return norm
 
     def sync_gradients(self, grads):
         """Sum ``grads`` over the data ranks in place (nothing to do with

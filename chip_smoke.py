@@ -28,7 +28,10 @@ Phases; any failure exits non-zero and prints no result line:
      forward + backward minus forward, at dropout 0 and 0.1); the
      forward's four instances' and the backward kernels' registers and
      spills (ptxas) and their tensor-core instructions (cuobjdump: wgmma in
-     bf16, TF32 mma in f32);
+     bf16, TF32 mma in f32); the grounding conv kernel (dwsep_conv, the
+     depthwise-separable conv with its ReLU, residual and mask) at the
+     serving cell's shapes, timed beside its bound and the parent's ATen
+     route, its twelve instances' registers and TF32 mma;
   3. the main paths at full width, each with every launch count set to 0
      just before it and read just after:
      a. BIG-C v10 inference at the VidVRD exp2 geometry (N=50 tracklets x
@@ -39,12 +42,14 @@ Phases; any failure exits non-zero and prints no result line:
         300 classeme features, 46 tracklets of 2,400-frame videos) then the
         grounding_weights model (dim_hidden 128, 10 bins) on 299-clip I3D
         features, stage A keeping 10 predicates per query, stage B batched
-        at (Q, T=512) with Q reaching 256 or more;
+        at (Q, T=512) with Q reaching 256 or more (27 conv-kernel launches
+        a float32 stage-B forward, none in bfloat16);
      c. the grounding train step (build_grounding_train_step) at bench.py's
         train geometry, B=8 videos x P=64 predicate slots x T=512 clips
         (R = B x 2P = 1024 rows in the combined encoder), dropout 0.1:
         ms/step, videos/s and peak memory, one composed forward and one
-        backward launch per step;
+        backward launch per step, no conv-kernel launch (a gradient is
+        recorded: the convs keep ATen's route);
      d. the train_vidor --train_grounding entry point on grounding_weights
         with full-size synthetic videos (P=200 slots: R = 3,200 rows at
         batch 8), stopped after a step as on SIGTERM and resumed from its
@@ -153,9 +158,10 @@ Phases; any failure exits non-zero and prints no result line:
         T=512); each artifact reloaded through utils/serving.load_exported
         and run on a's batch and phase 4's stage-B batch: equal to the
         live infer step (integer leaves exactly, floats within 1e-6), the
-        role-attention (6) and composed-forward launches counted while it
-        runs; export seconds, artifact MB, videos/s of the artifact beside
-        the live step's; visualisation has no device path and is not run;
+        role-attention (6), composed-forward and conv-kernel (27 in the
+        grounding artifact) launches counted while it runs; export
+        seconds, artifact MB, videos/s of the artifact beside the live
+        step's; visualisation has no device path and is not run;
   4. checks of the output: one exp2 batch's pred_logits/att and one
      stage-B batch's regrs/conf/cls (B=4, Q=256, T=512) on the card
      against the port's CPU run on the same weights (float32); one exp2
@@ -341,11 +347,13 @@ def kernel_counters():
     from vidsgg_big_tpu_torch.ops.composed_attn import (
         composed_attention, composed_attention_backward,
         composed_attention_train)
+    from vidsgg_big_tpu_torch.ops.dwsep_conv import dwsep_conv
     from vidsgg_big_tpu_torch.ops.role_attn import role_attention
     return {"role_attention": role_attention,
             "composed_attention": composed_attention,
             "composed_attention_train": composed_attention_train,
-            "composed_attention_backward": composed_attention_backward}
+            "composed_attention_backward": composed_attention_backward,
+            "dwsep_conv": dwsep_conv}
 
 
 def reset_counts():
@@ -732,6 +740,108 @@ def check_composed_attention():
     return rows
 
 
+# the grounding convs at the serving cell's shapes (B=4 x Q=256 rows of T=512
+# clips, 128 channels): (label, Co, k, ReLU, residual, mask) of the QANet
+# convs, the head blocks and the heads' final convs
+DWSEP_CELL = (("qanet_k7", 128, 7, True, True, True),
+              ("head_k3", 128, 3, True, False, True),
+              ("head_out_20", 20, 3, False, False, False),
+              ("head_out_10", 10, 3, False, False, False))
+DWSEP_TOL = dict(rtol=1e-4, atol=1e-4)
+# the conv kernel's launches in a float32 grounding forward at C=128: the
+# video, query and combined encoders' 4 each, the three heads' 5 each
+GROUNDING_CONVS = 27
+
+
+def dwsep_inputs(r, t, co, k, residual, masked, seed):
+    """x (r, t, 128), the conv's weights, a residual (r, t, co) or None and
+    a mask with a fully masked last row or None, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(r, t, 128, generator=g)
+    weights = [torch.randn(shape, generator=g) * 0.3 for shape in (
+        (128, 1, k), (128,), (co, 128, 1), (co,))]
+    res = torch.randn(r, t, co, generator=g) if residual else None
+    mask = None
+    if masked:
+        mask = torch.rand(r, t, generator=g) < 0.7
+        mask[-1] = False
+    return [None if a is None else a.cuda() for a in [x, *weights, res,
+                                                      mask]]
+
+
+def dwsep_bound(x, dw, db, pw, pb, res, mask):
+    """(bound ms, what bounds it) of one call: x, the weights, the residual
+    and the mask read once, y written once; the depthwise taps and the
+    pointwise product at the float32 peak (f32_ops_seconds)."""
+    r, t, c = x.shape
+    co, k = pw.shape[0], dw.shape[-1]
+    nbytes = 4 * (x.numel() + r * t * co + sum(a.numel() for a in (
+        dw, db, pw, pb))) + (0 if res is None else 4 * res.numel()) + (
+        0 if mask is None else mask.numel())
+    t_ops = f32_ops_seconds(2.0 * r * t * c * (k + co))
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_dwsep_conv():
+    """Phase 2: the grounding conv kernel (csrc/dwsep_conv.cu) vs its plain
+    version at the serving cell's shapes (DWSEP_CELL), timed there beside
+    its bound and the parent's ATen route (transposes, two convs, the
+    epilogue's passes; the plain version is its values made contiguous, so
+    it is timed once and reported as plain_ms and library_ms), the better
+    of two turns.  The edge shapes, float64 exactness, masked rows and
+    repeated launches are the card tests' (``pytest --noconftest -m gpu
+    tests/test_torch_dwsep_conv.py``)."""
+    from vidsgg_big_tpu_torch.ops.dwsep_conv import (
+        dwsep_conv, dwsep_conv_aten, dwsep_conv_plain)
+    max_err = 0.0
+    shapes = {}
+    for i, (label, co, k, relu, res, masked) in enumerate(DWSEP_CELL):
+        args = dwsep_inputs(G_B * G_Q, G_T, co, k, res, masked, seed=i)
+        x, dw, db, pw, pb, rt, mask = args
+        out = dwsep_conv(x, dw, db, pw, pb, relu, rt, mask)
+        want = dwsep_conv_plain(x, dw, db, pw, pb, relu, rt, mask)
+        torch.testing.assert_close(out, want, **DWSEP_TOL)
+        err = (out - want).abs().max().item()
+        max_err = max(max_err, err)
+        del out, want
+        best = in_turns({
+            "kernel": lambda: dwsep_conv(x, dw, db, pw, pb, relu, rt, mask),
+            "library": lambda: dwsep_conv_aten(x, dw, db, pw, pb, relu, rt,
+                                               mask)},
+            iters={"kernel": 20, "library": 5})
+        bound_ms, bound_by = dwsep_bound(*args)
+        shapes[label] = {"ms": best["kernel"], "plain_ms": best["library"],
+                         "library_ms": best["library"], "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        log(f"dwsep_conv {label} R={G_B * G_Q} T={G_T} Co={co} k={k}: "
+            f"max |kernel - plain| = {err}; kernel {best['kernel']} ms, "
+            f"ATen route {best['library']} ms, bound {bound_ms} ms "
+            f"({bound_by})")
+        del args, x, rt, mask
+        torch.cuda.empty_cache()
+    first = shapes[DWSEP_CELL[0][0]]
+    return {"name": "dwsep_conv_f32", "route": "cuda",
+            "source": "vidsgg_big_tpu_torch/csrc/dwsep_conv.cu",
+            "replaces": "none (XLA's convs in the JAX package)",
+            "max_abs_err": max_err, "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "library_ms": first["library_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "shapes": shapes}
+
+
+def dwsep_code(ptxas_log):
+    """kernel_code of the conv kernel's twelve instances, by the n8 tiles
+    of a warp (1, 2, 4) and the depthwise halo (0-3)."""
+    return kernel_code(ptxas_log, "dwsep_conv",
+                       {f"f32_nj{nj}_halo{h}":
+                        f"dwsep_conv_kernelILi{nj}ELi{h}E"
+                        for nj in (1, 2, 4) for h in range(4)},
+                       "dwsep conv")
+
+
 def opcode(instruction):
     """The opcode of a SASS instruction, past its predicate."""
     words = instruction.split()
@@ -882,6 +992,13 @@ def drive_vidor():
                 f"launches over {len(res['stage_b_batches'])} stage-B "
                 f"batches, where the gate engages {engaged} encoders; "
                 "expected one launch each, and at least one")
+        convs = GROUNDING_CONVS * len(res["stage_b_batches"]) \
+            if name == "float32" else 0
+        if got["dwsep_conv"] != convs:
+            raise AssertionError(
+                f"{name}: {got['dwsep_conv']} dwsep_conv launches over "
+                f"{len(res['stage_b_batches'])} stage-B batches, expected "
+                f"{convs}")
         results[name], per_run[name] = res, got
     return per_run, results
 
@@ -953,7 +1070,8 @@ def drive_train_step(card):
             raise AssertionError(f"{dtype}: train loss {loss}")
         if counts["composed_attention_train"] != TRAIN_STEPS or \
                 counts["composed_attention_backward"] != TRAIN_STEPS or \
-                counts["composed_attention"] != 0:
+                counts["composed_attention"] != 0 or \
+                counts["dwsep_conv"] != 0:
             raise AssertionError(
                 f"{dtype}: launches {counts} over {TRAIN_STEPS} steps; "
                 "expected one train forward and one backward each")
@@ -2944,7 +3062,8 @@ def drive_export_serving(card):
                                            grounding_batch())]
             run_live = lambda: infer(*dev)
             want = {"composed_attention":
-                    len(composed_encoders(gcfg, G_B, G_Q, G_T))}
+                    len(composed_encoders(gcfg, G_B, G_Q, G_T)),
+                    "dwsep_conv": GROUNDING_CONVS}
             videos = G_B
         else:
             mc = dict(parse_config_py(EXP2_CFG)["model_config"],
@@ -2959,7 +3078,7 @@ def drive_export_serving(card):
                                      topk=man["topk"])
             dev = props.to("cuda", feats=getattr(torch, dtype))
             run_live = lambda: infer(dev)
-            want = {"role_attention": cfg.n_deco_layers}
+            want = {"role_attention": cfg.n_deco_layers, "dwsep_conv": 0}
             videos = BATCH
         reset_counts()
         served = serve(dev)
@@ -3165,10 +3284,12 @@ def main(argv=None):
     role = check_role_attention(args.parent)
     role["code"] = role_code(logs["role_attn"])
 
-    kernels = [role] + check_composed_attention()
+    dwsep = check_dwsep_conv()
+    dwsep["code"] = dwsep_code(logs["dwsep_conv"])
+    kernels = [role] + check_composed_attention() + [dwsep]
     for k in kernels:
         tag = k["name"].rsplit("_", 1)[1]
-        if k["name"] == "role_attention":
+        if k["name"] in ("role_attention", "dwsep_conv_f32"):
             continue
         if k["name"].startswith("composed_attention_backward_"):
             k["code"] = {p: bwd_code[f"{p}_{tag}"] for p in ("dq", "dkv")}
@@ -3231,6 +3352,7 @@ def main(argv=None):
                           "composed_attention_backward")):
         rows_of[row + "_f32"] = (wrapper, ("float32",))
         rows_of[row + "_bf16"] = (wrapper, ("bfloat16",))
+    rows_of["dwsep_conv_f32"] = ("dwsep_conv", ("float32",))
     for k in kernels:
         wrapper, dtypes = rows_of[k["name"]]
         k["launches_by_path"] = {

@@ -15,6 +15,7 @@ import importlib.util
 import json
 import os
 import re
+import subprocess
 import sys
 
 import numpy as np
@@ -317,23 +318,61 @@ def test_bf16_and_int8_exports_serve_as_live(tmp_path, feat_dtype,
     _same_leaves(serve(template), live)
 
 
-def test_grounding_export_holds_the_composed_op(tmp_path):
+@pytest.fixture(scope="module")
+def grounding_d128(tmp_path_factory):
     """A grounding config whose attention takes the composed path (d=128,
-    T=128, a small logits budget): the graph holds the composed op in each
-    such encoder, and the artifact equals the live step."""
-    cfg = CONFIGS["GRD_CFG"].replace(
-        "dim_hidden=32,", "dim_hidden=128, attn_bytes_budget=1 << 16,")
-    cfg_path = tmp_path / "config_.py"
-    cfg_path.write_text(cfg)
-    args = _args(cfg_path, "grounding", tmp_path / "artifact", t_bucket=128,
+    T=128, a small logits budget) and whose 27 convs take the dwsep_conv op
+    (float32 at C = 128), exported once: ``(args, out_dir, op names)``."""
+    tmp = tmp_path_factory.mktemp("grounding_d128")
+    cfg_path = tmp / "config_.py"
+    cfg_path.write_text(CONFIGS["GRD_CFG"].replace(
+        "dim_hidden=32,", "dim_hidden=128, attn_bytes_budget=1 << 16,"))
+    args = _args(cfg_path, "grounding", tmp / "artifact", t_bucket=128,
                  q_bucket=2, batch_size=1)
     export_model.export_model(args)
-    ops = _op_nodes(tmp_path / "artifact")
-    assert ops and set(ops) == {
+    return args, tmp / "artifact", _op_nodes(tmp / "artifact")
+
+
+def test_grounding_export_holds_the_composed_op(grounding_d128):
+    """The graph holds the composed op in each encoder that takes the
+    composed path, no other op of the port's but the convs', and the
+    artifact equals the live step."""
+    args, out_dir, ops = grounding_d128
+    assert "vidsgg_big_tpu_torch.composed_attention.default" in ops
+    assert set(ops) - {"vidsgg_big_tpu_torch.dwsep_conv.default"} == {
         "vidsgg_big_tpu_torch.composed_attention.default"}
-    serve, _ = load_exported(str(tmp_path / "artifact"))
+    serve, _ = load_exported(str(out_dir))
     template, live = _port_live("grounding", args)
     _same_leaves(serve(template), live)
+
+
+def test_grounding_export_holds_the_dwsep_conv_op(grounding_d128):
+    """At that width each of the model's 27 convs is one dwsep_conv node."""
+    _, _, ops = grounding_d128
+    assert ops.count("vidsgg_big_tpu_torch.dwsep_conv.default") == 27
+
+
+def test_grounding_artifact_serves_in_a_fresh_process(grounding_d128,
+                                                      tmp_path):
+    """A process that imports only ``utils.serving`` loads the dim-128
+    grounding artifact (load_exported registers every op it holds) and
+    serves the live step's output."""
+    args, out_dir, _ = grounding_d128
+    template, live = _port_live("grounding", args)
+    torch.save(template, tmp_path / "template.pt")
+    script = (
+        "import sys, torch\n"
+        "from vidsgg_big_tpu_torch.utils.serving import load_exported\n"
+        "serve, _ = load_exported(sys.argv[1])\n"
+        "torch.save(tuple(serve(torch.load(sys.argv[2]))), sys.argv[3])\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-c", script, str(out_dir),
+         str(tmp_path / "template.pt"), str(tmp_path / "served.pt")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    _same_leaves(torch.load(tmp_path / "served.pt"), live)
 
 
 def test_manifest_keys_equal_jax(tmp_path):

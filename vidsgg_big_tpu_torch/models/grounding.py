@@ -26,6 +26,8 @@ from torch import nn
 from ..ops.attention import (attn_chunked_stored, chunked_attention,
                              composed_qkvo, dropout, row_share)
 from ..ops.composed_attn import fused_composed_attention
+from ..ops.dwsep_conv import (conv_epilogue, dwsep_conv, dwsep_conv_aten,
+                              kernel_takes)
 from ..ops.temporal import tiou, tiou_left_right
 from ..parallel.mesh import data_sum
 from ..utils.spans import span
@@ -108,12 +110,17 @@ def composed_encoders(cfg: "GroundingConfig", b: int, q: int, t: int):
 
 class DepthwiseSeparableConv(nn.Module):
     """Depthwise + pointwise 1-D conv over time (reference
-    grd_model_v5.py:36-56), (B, T, C_in) -> (B, T, C_out).
+    grd_model_v5.py:36-56), (B, T, C_in) -> (B, T, C_out), with the
+    caller's ReLU, residual and mask (``ops/dwsep_conv.conv_epilogue``).
 
-    float32 runs the two convs as they are; bfloat16 composes them into one
-    dense (C_out, C_in, k) conv first (W[o, c, k] = pw[o, c] dw[c, k], the
-    bias folded), as the JAX package does in bf16.  Either way the weights
-    are float32 and are cast to the compute dtype after composing.
+    A float32 call that records no gradient, at a shape the kernel takes
+    (C_in = 128, C_out <= 128, odd k <= 7), goes through the registered op
+    ``dwsep_conv``: one channels-last kernel on the card, the plain version
+    on the CPU.  Otherwise float32 runs the two convs as ATen ops on the
+    transposed input, then the epilogue, and bfloat16 composes them into
+    one dense (C_out, C_in, k) conv first (W[o, c, k] = pw[o, c] dw[c, k],
+    the bias folded), as the JAX package does in bf16.  Either way the
+    weights are float32 and are cast to the compute dtype after composing.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
@@ -124,20 +131,26 @@ class DepthwiseSeparableConv(nn.Module):
                                     groups=in_channels)
         self.point_wise = nn.Conv1d(in_channels, out_channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False, residual=None, mask=None):
         cdt = x.dtype
-        xc = x.transpose(1, 2)                               # (B, C, T)
         dw, pw = self.depth_wise, self.point_wise
-        pad = self.kernel_size // 2
+        weights = (dw.weight, dw.bias, pw.weight, pw.bias)
         if cdt == torch.bfloat16:
             full = pw.weight * dw.weight[:, 0, :][None]      # (O, C, k)
             bias = pw.weight[:, :, 0] @ dw.bias + pw.bias
-            y = F.conv1d(xc, full.to(cdt), bias.to(cdt), padding=pad)
-        else:
-            y = F.conv1d(xc, dw.weight.to(cdt), dw.bias.to(cdt), padding=pad,
-                         groups=xc.shape[1])
-            y = F.conv1d(y, pw.weight.to(cdt), pw.bias.to(cdt))
-        return y.transpose(1, 2)
+            y = F.conv1d(x.transpose(1, 2), full.to(cdt), bias.to(cdt),
+                         padding=self.kernel_size // 2)
+            return conv_epilogue(y.transpose(1, 2), relu, residual, mask)
+        if cdt == torch.float32 and kernel_takes(
+                x.shape[-1], pw.out_channels, self.kernel_size) and not (
+                torch.is_grad_enabled() and any(
+                    a is not None and a.requires_grad
+                    for a in (x, residual) + weights)):
+            return dwsep_conv(x.contiguous(), *weights, relu,
+                              None if residual is None else
+                              residual.contiguous(),
+                              None if mask is None else mask.contiguous())
+        return dwsep_conv_aten(x, *weights, relu, residual, mask)
 
 
 class QANetEncoderLayer(nn.Module):
@@ -196,7 +209,7 @@ class QANetEncoderLayer(nn.Module):
         out = z(ln(self.normb, out))
         n = len(self.convs)
         for i, (conv, norm) in enumerate(zip(self.convs, self.norm_seq)):
-            out = z(F.relu(conv(out)) + res)
+            out = conv(out, relu=True, residual=res, mask=mask)
             if (i + 1) % 2 == 0:
                 out = drop(out, self.dropout * (i + 1) / n)
             res = out
@@ -251,20 +264,18 @@ class QANetEncoderLayer(nn.Module):
 class ConvHead(nn.Sequential):
     """4 x (dw-sep conv + relu) + a final dw-sep conv (reference
     grd_model_v5.py:182-193; torch indices ``i.0`` and ``4``), padded clips
-    re-zeroed between convs; the output is float32."""
+    re-zeroed between convs (the ReLU and the mask go into each conv's
+    call); the output is float32."""
 
     def __init__(self, d_model: int, out_channels: int, sigmoid: bool = False):
         super().__init__(*[nn.Sequential(
-            DepthwiseSeparableConv(d_model, d_model, 3), nn.ReLU())
-            for _ in range(4)],
+            DepthwiseSeparableConv(d_model, d_model, 3)) for _ in range(4)],
             DepthwiseSeparableConv(d_model, out_channels, 3))
         self.sigmoid = sigmoid
 
     def forward(self, x, mask=None):
-        z = ((lambda o: o.masked_fill(~mask[..., None], 0.0))
-             if mask is not None else (lambda o: o))
         for block in list(self)[:-1]:
-            x = z(block(x))
+            x = block[0](x, relu=True, mask=mask)
         x = self[-1](x).float()
         return torch.sigmoid(x) if self.sigmoid else x
 

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every kernel source of the port, by library name
 KERNELS = {"role_attn": CSRC_DIR / "role_attn.cu",
            "composed_attn": CSRC_DIR / "composed_attn.cu",
-           "composed_attn_bwd": CSRC_DIR / "composed_attn_bwd.cu"}
+           "composed_attn_bwd": CSRC_DIR / "composed_attn_bwd.cu",
+           "dwsep_conv": CSRC_DIR / "dwsep_conv.cu"}
 
 # host libraries (plain C++, no CUDA), by library name
 HOST_LIBRARIES = {"packer": CSRC_DIR / "packer.cpp"}

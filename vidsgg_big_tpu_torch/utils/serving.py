@@ -3,8 +3,8 @@
 Port of the JAX package's ``utils/serving.py``.  The artifact is a
 ``torch.export`` program: the whole infer step with its weights, run
 without the model's Python code.  Its kernels are the registered ops of
-``ops/role_attn.py`` and ``ops/composed_attn.py``, which are imported here
-before the program is loaded.
+``ops/role_attn.py``, ``ops/composed_attn.py`` and ``ops/dwsep_conv.py``,
+which are imported here before the program is loaded.
 
     from vidsgg_big_tpu_torch.utils.serving import load_exported
     serve, manifest = load_exported("exp2_serving")
@@ -48,7 +48,7 @@ def load_exported(path: str):
     import torch
 
     # the kernels' ops must be registered before the program is loaded
-    from ..ops import composed_attn, role_attn  # noqa: F401
+    from ..ops import composed_attn, dwsep_conv, role_attn  # noqa: F401
 
     if os.path.isdir(path):
         blob_path = os.path.join(path, ARTIFACT)

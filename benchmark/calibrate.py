@@ -6,10 +6,11 @@
 For each seed, in one process: the cell's set-up, a short window at its
 own load (serving: long enough to fill the run's sample of requests), and
 the numbers its check compares (the program's readings).  With
-``--controls`` also the readings of the program with its own bfloat16 path
-switched on (``compute_dtype``, one step below the configuration's
-float32: the control), of the reference put in the program's place in
-bfloat16, and for a training cell of the reference on half of each batch.
+``--controls`` also the readings of the reference put in the program's
+place one precision below the cell's (``controls``: bfloat16 for a float32
+cell, the driver's ``control_dtype`` for a bfloat16 one), for a training
+cell of the reference on half of each batch, and for a float32 cell of the
+program with its own bfloat16 path switched on (``compute_dtype``).
 One JSON line a seed on standard output.  Not part of a benchmark run: the runs' limits
 live in the traffic files and are set from these readings.
 """
@@ -60,10 +61,12 @@ def main(argv=None):
         work, sample, got, check_s = readings(cell, seed)
         line = {"seed": seed, "program": got, "check_s": check_s}
         if args.controls:
-            line.update(work.controls(sample, torch.bfloat16))
+            line.update(work.controls(sample, getattr(
+                work, "control_dtype", torch.bfloat16)))
             del work, sample
             torch.cuda.empty_cache()
-            line["program_bf16"] = readings(low, seed)[2]
+            if "compute_dtype" not in cell.traffic:
+                line["program_bf16"] = readings(low, seed)[2]
         line["seconds"] = time.perf_counter() - t0
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()

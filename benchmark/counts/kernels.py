@@ -57,3 +57,22 @@ def composed_backward_bound(rows: int, heads: int, t: int, d: int,
     flop = fused_attention_flops(rows, t, d, heads, backward=True) \
         - fused_attention_flops(rows, t, d, heads)
     return bound_seconds(flop, nbytes, dtype)
+
+
+def dwsep_conv_flops(rows: int, t: int, c: int, co: int, k: int) -> float:
+    """A depthwise-separable conv over (rows, t, c): the depthwise taps
+    (2 c k a step) and the pointwise product (2 c co a step)."""
+    return 2.0 * rows * t * (c * k + c * co)
+
+
+def dwsep_conv_bound(rows: int, t: int, c: int, co: int, k: int,
+                     residual: bool = False, mask: bool = False) -> float:
+    """Seconds of one ``dwsep_conv`` call (float32): x (rows, t, c), the
+    depthwise and pointwise weights and biases, the residual (rows, t, co)
+    and the mask (rows, t, one byte) where the call takes them read, y
+    (rows, t, co) written."""
+    nbytes = 4 * (rows * t * c + c * k + c + co * c + co
+                  + rows * t * co * (2 if residual else 1)) \
+        + (rows * t if mask else 0)
+    return bound_seconds(dwsep_conv_flops(rows, t, c, co, k), nbytes,
+                         "float32")

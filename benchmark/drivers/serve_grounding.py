@@ -21,6 +21,7 @@ from vidsgg_big_tpu_torch.models.grounding import (GroundingConfig,
                                                    GroundingModel,
                                                    composed_encoders)
 from vidsgg_big_tpu_torch.ops.composed_attn import composed_attention
+from vidsgg_big_tpu_torch.ops.dwsep_conv import dwsep_conv
 from vidsgg_big_tpu_torch.train.grounding_steps import \
     build_grounding_infer_step
 
@@ -68,6 +69,7 @@ class Work:
             self.step(i)
         end_phase("warm")
         composed_attention.launches = 0
+        dwsep_conv.launches = 0
 
     def step(self, i: int):
         x = self.inputs[i % len(self.inputs)]
@@ -76,7 +78,8 @@ class Work:
             return [t.cpu() for t in out]
 
     def counters(self) -> dict:
-        return {"composed_attention.launches": composed_attention.launches}
+        return {"composed_attention.launches": composed_attention.launches,
+                "dwsep_conv.launches": dwsep_conv.launches}
 
     def release(self):
         self.infer = None

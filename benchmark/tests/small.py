@@ -1,31 +1,39 @@
 """The cells at small widths and shapes, for CPU tests: every key the
-benchmark reads, shrunk, the rest (limits, thresholds) as committed."""
+benchmark reads, shrunk, the rest (limits, thresholds) as committed.
+
+A cell's small sizes are files found by name, as a run finds the cell's
+pieces: ``tests/small/configs/<config>.json`` shrinks the configuration's
+``model_config`` and ``tests/small/drivers/<driver>.json`` the keys of every
+traffic mix that the driver reads, under the benchmark directory the cell
+is loaded from.  A new configuration or driver brings its file; no file
+here changes for it.
+"""
 from __future__ import annotations
 
-from benchmark.harness.runtime import Cell
+from pathlib import Path
 
-CONFIGS = {
-    "bigc_v10_exp2": dict(dim_ffn=32, dim_enti=32, dim_pred=32, dim_att=32,
-                          dim_feat=48, dim_clsme=12, dim_i3d=16,
-                          num_querys=12, n_deco_layers=2),
-    "grounding_vidor": dict(dim_feat=32, dim_clsme=12, dim_hidden=16),
-}
-TRAFFIC = {
-    "serve_bigc": dict(batch=2, slots=10, tracklets=8, frames=16, min_len=4,
-                       video_len=40),
-    "train_bigc": dict(batch=2, slots=10, tracklets=8, frames=16, min_len=4,
-                       video_len=40, gt_slots=4, gt_trajs=3, pred_slots=6,
-                       gt_preds=4, gt_min_len=10, gt_max_start=5),
-    "serve_grounding": dict(batch=2, queries=6, clips=16, video_len=100),
-    "train_grounding": dict(batch=2, pred_slots=6, gt_preds=4, gt_trajs=4,
-                            clips=16, video_len=100),
-}
+from benchmark.harness.runtime import Cell, load_json
+
+SMALL = Path("tests") / "small"
+
+
+def small_sizes(root: Path, kind: str, name: str) -> dict:
+    """The small sizes of the configuration (``kind`` "configs") or driver
+    (``kind`` "drivers") ``name``."""
+    path = Path(root) / SMALL / kind / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no small sizes for the {kind[:-1]} {name!r}: add {path}")
+    return load_json(path)
 
 
 def small_cell(name: str, **kw) -> Cell:
     cell = Cell(name, **kw)
-    cell.config["model_config"].update(CONFIGS[cell.entry["config"]])
-    cell.traffic.update(TRAFFIC[cell.traffic["driver"]], trace_steps=2)
+    cell.config["model_config"].update(
+        small_sizes(cell.root, "configs", cell.entry["config"]))
+    cell.traffic.update(
+        small_sizes(cell.root, "drivers", cell.traffic["driver"]),
+        trace_steps=2)
     if "sample_batches" in cell.traffic:
         cell.traffic["sample_batches"] = 3
     return cell

@@ -9,14 +9,14 @@ import pytest
 import torch
 
 from benchmark.harness import program_pass
+from benchmark.harness.runtime import ROOT, load_json
 from benchmark.harness.session import run_cell
 from benchmark.harness.trace import MARKER
 from benchmark.tests.small import small_cell
 from vidsgg_big_tpu_torch.utils.spans import Record
 
 SEED = 2 ** 31 + 4321
-CELLS = ["exp2_serve_f32", "grounding_train_f32", "exp2_train_f32",
-         "grounding_serve_f32"]
+CELLS = [w["name"] for w in load_json(ROOT / "BENCHMARK.json")["workloads"]]
 # the spans, on the host's clock in nanoseconds
 RECORDS = [
     Record("train", None, 10_000, 90_000),          # 10-90 us
@@ -179,13 +179,14 @@ def test_pass_takes_its_device_from_the_run(monkeypatch, separate):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_traced_rehearsal_reads_the_host_spans(name):
+    cell = small_cell(name)
     result, _ = run_cell(name, SEED, 0.2, True, time.perf_counter(),
-                         device="cpu", cell=small_cell(name))
+                         device="cpu", cell=cell)
     metrics = result["metrics"]
     assert result["correct"]
     assert not [m for m in metrics if m.startswith("idle_ms.")]
-    if name == "exp2_train_f32":
-        assert metrics["host_ms.match_solve.bigc_train"]["value"] > 0
-        assert metrics["host_ms.match_solve.bigc_train"]["unit"] == "ms"
-    else:
-        assert not [m for m in metrics if m.startswith("host_ms.")]
+    host = [m["name"] for m in cell.per_layer
+            if m["name"].startswith("host_ms.")]
+    assert [m for m in metrics if m.startswith("host_ms.")] == host
+    for m in host:
+        assert metrics[m]["value"] > 0 and metrics[m]["unit"] == "ms"

@@ -13,6 +13,7 @@ import pytest
 
 from benchmark.harness.runtime import BENCH_DIR, ROOT, Cell, load_json
 from benchmark.harness.session import run_cell
+from benchmark.tests import faults
 from benchmark.tests.small import small_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -88,27 +89,104 @@ def test_metrics():
             assert m["moves"] in reported, (w["name"], m["name"])
 
 
-def test_new_cell_and_metric_are_files_and_entries(tmp_path):
-    for d in ("configs", "workloads", "drivers", "metrics"):
+def _copy_bench(tmp_path):
+    """The benchmark's files that a cell is found by, and the CPU suite's
+    small sizes and faults, copied under ``tmp_path``."""
+    for d in ("configs", "workloads", "drivers", "metrics", "tests/small",
+              "tests/faults"):
         shutil.copytree(BENCH_DIR / d, tmp_path / d)
+
+
+def _write_json(path, obj):
+    path.write_text(json.dumps(obj))
+
+
+def test_new_cell_and_metric_are_files_and_entries(monkeypatch, tmp_path):
+    _copy_bench(tmp_path)
     traffic = load_json(BENCH_DIR / "workloads" / "vidvrd_serve_b8.json")
-    (tmp_path / "workloads" / "vidvrd_serve_b4.json").write_text(
-        json.dumps(dict(traffic, batch=4)))
+    _write_json(tmp_path / "workloads" / "vidvrd_serve_b4.json",
+                dict(traffic, batch=4))
     (tmp_path / "metrics" / "requests_done.py").write_text(
         "def read(run):\n    return float(run.steps)\n")
+    # a new configuration and a new driver, each with its small sizes and
+    # the driver with its faults: new files, and entries in the spec
+    config = load_json(BENCH_DIR / "configs" / "bigc_v10_exp2.json")
+    _write_json(tmp_path / "configs" / "newcfg.json",
+                dict(config, name="newcfg"))
+    (tmp_path / "drivers" / "serve_newdrv.py").write_text(
+        "from benchmark.drivers.serve_bigc import Work, build  # noqa\n")
+    _write_json(tmp_path / "workloads" / "vidvrd_serve_new.json",
+                dict(traffic, driver="serve_newdrv"))
+    small = load_json(BENCH_DIR / "tests" / "small" / "configs" /
+                      "bigc_v10_exp2.json")
+    _write_json(tmp_path / "tests" / "small" / "configs" / "newcfg.json",
+                small)
+    small = load_json(BENCH_DIR / "tests" / "small" / "drivers" /
+                      "serve_bigc.json")
+    _write_json(tmp_path / "tests" / "small" / "drivers" /
+                "serve_newdrv.json", dict(small, batch=3))
+    (tmp_path / "tests" / "faults" / "serve_newdrv.py").write_text(
+        "from benchmark.tests.faults.serve_bigc import FAULTS  # noqa\n")
     spec = json.loads(json.dumps(SPEC))
-    spec["workloads"].append({"name": "exp2_serve_b4", "config":
-                              "bigc_v10_exp2", "traffic": "vidvrd_serve_b4",
-                              "chips": 1, "why": "a test"})
+    spec["workloads"] += [
+        {"name": "exp2_serve_b4", "config": "bigc_v10_exp2",
+         "traffic": "vidvrd_serve_b4", "chips": 1, "why": "a test"},
+        {"name": "new_serve", "config": "newcfg",
+         "traffic": "vidvrd_serve_new", "chips": 1, "why": "a test"}]
     spec["end_to_end"].append({"name": "requests_done", "unit": "requests",
                                "better": "higher", "bound": 0.05,
                                "source": "host_clock",
-                               "workloads": ["exp2_serve_b4"]})
+                               "workloads": ["exp2_serve_b4", "new_serve"]})
     cell = small_cell("exp2_serve_b4", spec=spec, root=tmp_path)
     result, _ = run_cell("exp2_serve_b4", 3, 0.2, False, time.perf_counter(),
                          device="cpu", cell=cell)
     assert result["metrics"]["requests_done"]["value"] == result["attempted"]
     assert result["correct"]
+
+    cell = small_cell("new_serve", spec=spec, root=tmp_path)
+    assert cell.traffic["batch"] == 3
+    assert cell.config["name"] == "newcfg"
+    result, _ = run_cell("new_serve", 3, 0.2, False, time.perf_counter(),
+                         device="cpu", cell=cell)
+    assert result["metrics"]["requests_done"]["value"] == result["attempted"]
+    assert result["correct"]
+    for fault in faults.load("serve_newdrv", root=tmp_path):
+        with monkeypatch.context() as patch:
+            broken = small_cell("new_serve", spec=spec, root=tmp_path)
+            fault(patch, broken)
+            result, _ = run_cell("new_serve", 3, 0.2, False,
+                                 time.perf_counter(), device="cpu",
+                                 cell=broken)
+        assert not result["correct"]
+
+
+@pytest.mark.parametrize("kind,missing", [
+    ("configs", "newcfg"), ("drivers", "serve_newdrv"), ("faults", None)])
+def test_missing_small_file_names_it(tmp_path, kind, missing):
+    _copy_bench(tmp_path)
+    config = load_json(BENCH_DIR / "configs" / "bigc_v10_exp2.json")
+    _write_json(tmp_path / "configs" / "newcfg.json",
+                dict(config, name="newcfg"))
+    (tmp_path / "drivers" / "serve_newdrv.py").write_text(
+        "from benchmark.drivers.serve_bigc import Work, build  # noqa\n")
+    traffic = load_json(BENCH_DIR / "workloads" / "vidvrd_serve_b8.json")
+    _write_json(tmp_path / "workloads" / "vidvrd_serve_new.json",
+                dict(traffic, driver="serve_newdrv"))
+    spec = json.loads(json.dumps(SPEC))
+    spec["workloads"].append({"name": "new_serve", "config": "newcfg",
+                              "traffic": "vidvrd_serve_new", "chips": 1,
+                              "why": "a test"})
+    if kind == "faults":
+        with pytest.raises(FileNotFoundError, match="serve_newdrv.py"):
+            faults.load("serve_newdrv", root=tmp_path)
+        return
+    small = tmp_path / "tests" / "small"
+    if kind == "drivers":
+        shutil.copy(small / "configs" / "bigc_v10_exp2.json",
+                    small / "configs" / "newcfg.json")
+    path = small / kind / f"{missing}.json"
+    with pytest.raises(FileNotFoundError, match=str(path)):
+        small_cell("new_serve", spec=spec, root=tmp_path)
 
 
 def test_run_without_a_card_fails():
